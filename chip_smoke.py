@@ -1,17 +1,24 @@
 """Smoke run of the PyTorch port (tpt_torch) on one CUDA card.
 
-Drives the port's main path — the progressive render of the demo scene at
-1920x1080, ray depth 13, 1 spp, thin-lens depth of field, the 256^2
-atmosphere, in 30-frame blocks — through its CLI entry point, after
-building the CUDA trace kernel from tpt_torch/csrc and holding it against
-its plain PyTorch version on the card.  Every phase prints one line; any
-failure raises and the script exits non-zero without printing a result.
+Builds the CUDA kernels from tpt_torch/csrc (one nvcc per source, in
+parallel), holds each against its plain PyTorch version on the card, and
+drives the port's two paths through their entry points:
+
+  * the render path: the progressive render of the demo scene at
+    1920x1080, ray depth 13, 1 spp, thin-lens depth of field, the 256^2
+    atmosphere, in 30-frame blocks, through ``tpt_torch.cli render``;
+  * the training path: ``tpt_torch.inverse_demo`` (512x512, ray depth 8,
+    two views, fixed-depth transport, clipped Adam, 200 steps), then 20
+    timed steps of the 1080p training step of benchmarks/train_bench.py.
+
+Every phase prints one line; any failure raises and the script exits
+non-zero without printing a result.
 
     python3 chip_smoke.py
 
-The second-to-last line is a JSON object with the kernel's launch count
-on the main path, its error against the plain version and its time
-against the plain version's; the last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with each kernel's launch count
+on the paths, its error against the plain version and its time against the
+plain version's; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -28,7 +35,22 @@ import torch
 
 WIDTH, HEIGHT, DEPTH, BLOCK = 1920, 1080, 13, 30
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "tpt_torch/csrc/trace.cu"
+TRAIN_STEPS, TRAIN_VIEWS = 200, 2
+
+
+def frame_cases():
+    """(view name, CameraConfig, width, height, ray depth, spp, rr, jitter)
+    of the one-frame comparisons: the train_bench step's 1080p frame, a
+    256^2 case, and the inverse demo's launches (512^2, depth 8, rr off,
+    its two views)."""
+    from tpt_torch import CameraConfig
+    from tpt_torch.inverse_demo import GRID_CAM, RAY_DEPTH
+
+    cam = CameraConfig()
+    return (("default", cam, WIDTH, HEIGHT, DEPTH, 1, True, "corner"),
+            ("default", cam, 256, 256, DEPTH, 2, False, "center"),
+            ("grid", GRID_CAM, 512, 512, RAY_DEPTH, 1, False, "corner"),
+            ("default", cam, 512, 512, RAY_DEPTH, 1, False, "corner"))
 
 
 def phase(name, msg):
@@ -88,30 +110,246 @@ def compare_refill(got, want):
     return err
 
 
+CAM_LEAVES = {"inv_proj": slice(0, 6), "inv_view": slice(6, 18), "focal": slice(18, 19),
+              "aperture": slice(19, 20)}
+
+
+def grad_groups(res, counts):
+    """The cotangent entries by the scale they are held at: each of the 24
+    table lanes over the sphere rows and over the cuboid rows, the padded
+    rows, and each camera leaf of cam20."""
+    from tpt_torch.integrator import ATTR_COLS
+    ns, nc = counts
+    groups = {}
+    for kind, rows in (("sphere", slice(0, ns)), ("cuboid", slice(ns, ns + nc))):
+        for col in range(ATTR_COLS):
+            groups[f"{kind} lane {col}"] = res.d_table[rows, col]
+    groups["padding"] = res.d_table[ns + nc:].reshape(-1)
+    groups.update({name: res.d_cam[idx] for name, idx in CAM_LEAVES.items()})
+    return groups
+
+
+def compare_grads(got, want, counts, rtol=1e-3, floor=1e-3):
+    """Each group of :func:`grad_groups` within rtol and atol = rtol x its
+    scale: the group's largest magnitude in the plain version, floored at
+    ``floor`` x the largest of its table or camera.  The floor is for
+    groups whose exact value is 0 and whose entries are sums of cancelling
+    terms: under Russian roulette the lobe probability cancels from the
+    throughput (thr / p / max(thr / p)), so the specular- and
+    refraction-chance lanes are rounding noise, as is the focal length
+    under a pinhole.  Returns ({group: (max abs err, largest magnitude)},
+    {"table": floor, "camera": floor}, [failed groups])."""
+    g_groups, w_groups = grad_groups(got, counts), grad_groups(want, counts)
+    floors = {"table": floor * float(want.d_table.abs().max()),
+              "camera": floor * float(want.d_cam.abs().max())}
+    errs, failed = {}, []
+    for name, w in w_groups.items():
+        d = (g_groups[name] - w).abs()
+        big = float(w.abs().max()) if w.numel() else 0.0
+        scale = max(big, floors["camera" if name in CAM_LEAVES else "table"], 1e-30)
+        err = float(d.max()) if w.numel() else 0.0
+        errs[name] = (err, big)
+        if not bool((d <= rtol * scale + rtol * w.abs()).all()):
+            failed.append(f"{name}: max abs err {err:.3g}, largest {big:.3g}")
+    return errs, floors, failed
+
+
+def fmt_grads(errs, floors):
+    """Per family, the worst error relative to its scale, and each group's
+    largest magnitude."""
+    fams = {"sphere lanes": [k for k in errs if k.startswith("sphere")],
+            "cuboid lanes": [k for k in errs if k.startswith("cuboid")],
+            "padding": ["padding"], "camera": list(CAM_LEAVES)}
+    out = []
+    for fam, keys in fams.items():
+        fl = floors["camera" if fam == "camera" else "table"]
+        ratio = {k: errs[k][0] / max(errs[k][1], fl, 1e-30) for k in keys}
+        worst = max(keys, key=ratio.get)
+        big = " ".join(f"{errs[k][1]:.3g}" for k in keys)
+        out.append(f"{fam}: worst err/scale {ratio[worst]:.3g} ({worst}), floor {fl:.3g}, "
+                   f"largest [{big}]")
+    return "; ".join(out)
+
+
+def grad_phases(dev, card, G):
+    """The backward kernel against its plain version, and its time split.
+    Returns (max abs err, {"ms", "plain_ms"} at 1080p)."""
+    from tpt_torch import CameraConfig, demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.integrator import build_attr_table
+
+    scene = demo_scene().build(dev)
+    counts = scene.counts
+    table = build_attr_table(scene, counts)
+    cam = CameraConfig()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    failed = []
+
+    def inputs(c, w, h, spp):
+        ip, iv, _ = camera_matrices(c, w, h)
+        cam20 = G.camera_vector(ip, iv, c.focal_length, c.aperture_diameter, device=dev)
+        cots = [torch.randn(shape, generator=gen, device=dev)
+                for shape in ((3, h, w), (spp, 3, h, w), (spp, 3, h, w))]
+        return cam20, cots
+
+    def check(what, got, want):
+        errs, floors, bad = compare_grads(got, want, counts)
+        failed.extend(f"{what}, {b}" for b in bad)
+        return fmt_grads(errs, floors), max(err for err, _ in errs.values())
+
+    max_err = 0.0
+    cases = (("default", cam, 256, 256, DEPTH, 1, True, "corner"),) + frame_cases()[1:]
+    for i, (view, c, w, h, depth, spp, rr, jitter) in enumerate(cases):
+        cam20, cots = inputs(c, w, h, spp)
+        kw = dict(width=w, height=h, ray_depth=depth, spp=spp, counts=counts, rr=rr,
+                  jitter=jitter)
+        what = f"{w}x{h} {view} view depth {depth} spp {spp} rr {rr} {jitter}"
+        got = G.trace_grad(scene, table, cam20, 3, *cots, **kw)
+        want = G.trace_grad_plain(scene, table, cam20, 3, *cots, **kw)
+        summary, err = check(what, got, want)
+        max_err = max(max_err, err)
+        line = (f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernel) / "
+                f"{int(want.n_zeroed)} (plain)")
+        if i == 0:
+            half = G.trace_grad(scene, table, cam20, 3, *cots, half_stores=True, **kw)
+            again = G.trace_grad(scene, table, cam20, 3, *cots, **kw)
+            half_summary, _ = check(f"{what} half_stores", half, got)
+            rep = max(float((again.d_table - got.d_table).abs().max()),
+                      float((again.d_cam - got.d_cam).abs().max()))
+            line += (f"; half_stores vs full: {half_summary}; two launches differ by at "
+                     f"most {rep:.3g}")
+        phase("grad", line)
+
+    # the training step's launch: 1080p, spp 1, Russian roulette on; the plain
+    # version runs in row bands (the cotangent is a sum over pixels)
+    cam20, cots = inputs(cam, WIDTH, HEIGHT, 1)
+    kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, counts=counts, rr=True)
+    band = HEIGHT // 4
+
+    def run():
+        return G.trace_grad(scene, table, cam20, 0, *cots, **kw)
+
+    def run_plain():
+        return G.trace_grad_plain(scene, table, cam20, 0, *cots, band_rows=band, **kw)
+
+    what = f"{WIDTH}x{HEIGHT} spp 1 rr True corner"
+    got, want = run(), run_plain()
+    summary, err = check(what, got, want)
+    max_err = max(max_err, err)
+    times = {"ms": cuda_ms(run, 5), "plain_ms": cuda_ms(run_plain, 1, warm_up=False)}
+    phase("grad", f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernel) / "
+          f"{int(want.n_zeroed)} (plain, {HEIGHT // band} bands); kernel {times['ms']:.2f} ms, "
+          f"plain {times['plain_ms']:.1f} ms ({card})")
+
+    # the same launch shape cut into its row bands, each launched and filtered
+    # alone: a non-finite camera cotangent (one axis-parallel pixel zeroes all
+    # 20 in the whole frame) poisons only its own band, so the other bands
+    # hold the camera adjoint at this shape
+    cam_bands = []
+    for r in range(0, HEIGHT, band):
+        sub = [cots[0][:, r:r + band], cots[1][:, :, r:r + band], cots[2][:, :, r:r + band]]
+        bkw = dict(kw, n_rows=band, row0=r)
+        got = G.trace_grad(scene, table, cam20, 0, *sub, **bkw)
+        want = G.trace_grad_plain(scene, table, cam20, 0, *sub, **bkw)
+        summary, err = check(f"{what} rows {r}:{r + band}", got, want)
+        max_err = max(max_err, err)
+        if bool(want.d_cam.ne(0).any()):
+            cam_bands.append(r)
+        phase("grad", f"{what} rows {r}:{r + band}: {summary}; zeroed "
+              f"{int(got.n_zeroed)} (kernel) / {int(want.n_zeroed)} (plain)")
+    if not cam_bands:
+        failed.append(f"{what}: the camera cotangent is zero in every row band")
+    if failed:
+        raise AssertionError("backward kernel vs plain: " + "; ".join(failed))
+
+    split = {mode: cuda_ms(lambda: G.trace_grad(scene, table, cam20, 0, *cots, ablate=mode,
+                                                **kw), 3)
+             for mode in G.ABLATE_MODES}
+    phase("grad-split", f"{WIDTH}x{HEIGHT} kernel ms by ablate mode: "
+          + ", ".join(f"{m} {v:.2f}" for m, v in split.items())
+          + f"; forward sweep and camera (norev) {split['norev']:.2f}, stores "
+          f"{split['none'] - split['nostores']:.2f}, reverse sweep "
+          f"{split['none'] - split['norev']:.2f}, camera adjoint "
+          f"{split['none'] - split['nocam']:.2f}, table accumulation "
+          f"{split['none'] - split['nodtbl']:.2f} ({card})")
+    return max_err, times
+
+
+def train_phases(dev, card, K, G):
+    """The training path through its entry point, then the 1080p training
+    step's time.  Returns the path's launches of (the trace kernel, the
+    backward kernel)."""
+    from tpt_torch import inverse_demo
+    from tpt_torch.profile_block import make_train_bench_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "inverse_demo.json")
+        K.LAUNCHES, G.GRAD_LAUNCHES = 0, 0
+        t0 = time.perf_counter()
+        rc = inverse_demo.main(["--steps", str(TRAIN_STEPS), "--size", "512x512",
+                                "--device", "cuda", "--out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, grad_launches = K.LAUNCHES, G.GRAD_LAUNCHES
+        with open(out) as f:
+            res = json.load(f)
+        pngs = sorted(n for n in os.listdir(tmp) if n.endswith(".png"))
+    want = TRAIN_STEPS * TRAIN_VIEWS
+    if rc != 0 or grad_launches != want or launches < want:
+        raise AssertionError(f"inverse_demo: rc {rc}, {grad_launches} backward launches "
+                             f"(want {want}), {launches} trace launches")
+    if not (np.isfinite(res["loss_last"]) and np.isfinite(res["loss_final_median"])
+            and res["sphere_param_mae_after"] < 0.5 * res["sphere_param_mae_before"]
+            and len(pngs) == 3):
+        raise AssertionError(f"inverse_demo did not converge: {res}, {pngs}")
+    phase("train", f"inverse_demo 512x512 depth 8, 2 views, {TRAIN_STEPS} steps: "
+          f"{launches} trace / {grad_launches} backward kernel launches, {wall:.1f} s wall, "
+          f"loss {res['loss_first']:.5f} -> median {res['loss_final_median']:.5f}, sphere "
+          f"MAE {res['sphere_param_mae_before']} -> {res['sphere_param_mae_after']}, "
+          f"emissive MAE {res['cuboid_param_mae_before']} -> {res['cuboid_param_mae_after']}")
+
+    step = make_train_bench_step(WIDTH, HEIGHT, dev)
+    loss = step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        loss = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 20 * 1e3
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("train step: loss is not finite")
+    phase("train", f"train_bench step {WIDTH}x{HEIGHT} depth {DEPTH} spp 1 rr, SGD: "
+          f"{ms:.2f} ms per step over 20 steps (host clock, synchronised), loss "
+          f"{float(loss):.5f} ({card})")
+    return launches, grad_launches
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda")
+    sys.path.insert(0, REPO)
+    from tpt_torch import CameraConfig, demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.kernels import _build
+    from tpt_torch.kernels import trace as K
+    from tpt_torch.kernels import trace_grad as G
+
     card = gpu_name_and_power()
     print(card, flush=True)
     phase("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} sm_{''.join(map(str, torch.cuda.get_device_capability(0)))} "
           f"count {torch.cuda.device_count()}")
 
-    sys.path.insert(0, REPO)
-    from tpt_torch import CameraConfig, demo_scene
-    from tpt_torch.camera import camera_matrices
-    from tpt_torch.kernels import _build
-    from tpt_torch.kernels import trace as K
-
     # ---- 2. build ----
     t0 = time.perf_counter()
-    path, log = _build.ensure_built()
+    paths, log = _build.ensure_built()
     _build.load_library()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    phase("build", f"{time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, REPO)} "
-          f"{' | '.join(ptxas)}")
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if ln.startswith("==") or "registers" in ln or "spill" in ln]
+    phase("build", f"{time.perf_counter() - t0:.2f} s -> "
+          f"{', '.join(os.path.relpath(p, REPO) for p in paths.values())} {' | '.join(ptxas)}")
 
     scene = demo_scene().build(dev)
     cam = CameraConfig()
@@ -120,16 +358,16 @@ def main() -> int:
     # ---- 3. per-frame kernel vs plain ----
     max_err = 0.0
     times = {}
-    for w, h, spp, rr, jitter in ((WIDTH, HEIGHT, 1, True, "corner"),
-                                  (256, 256, 2, False, "center")):
-        ip, iv, _ = camera_matrices(cam, w, h)
-        kw = dict(width=w, height=h, ray_depth=DEPTH, spp=spp, rr=rr, jitter=jitter)
-        got = K.trace(scene, ip, iv, 5, focal, ap, **kw)
-        want = K.trace_plain(scene, ip, iv, 5, focal, ap, **kw)
+    for view, c, w, h, depth, spp, rr, jitter in frame_cases():
+        ip, iv, _ = camera_matrices(c, w, h)
+        kw = dict(width=w, height=h, ray_depth=depth, spp=spp, rr=rr, jitter=jitter)
+        got = K.trace(scene, ip, iv, 5, c.focal_length, c.aperture_diameter, **kw)
+        want = K.trace_plain(scene, ip, iv, 5, c.focal_length, c.aperture_diameter, **kw)
         torch.cuda.synchronize()
         n_flipped, err = compare_per_frame(got, want)
         max_err = max(max_err, err)
-        line = f"{w}x{h} spp {spp} rr {rr} {jitter}: {n_flipped} pixels flipped, max abs err {err:.3g}"
+        line = (f"{w}x{h} {view} view depth {depth} spp {spp} rr {rr} {jitter}: {n_flipped} "
+                f"pixels flipped, max abs err {err:.3g}")
         if w == WIDTH:
             times["per_frame_ms"] = cuda_ms(lambda: K.trace(scene, ip, iv, 5, focal, ap, **kw), 20)
             times["per_frame_plain_ms"] = cuda_ms(
@@ -231,17 +469,30 @@ def main() -> int:
     phase("throughput", f"{ms_block:.2f} ms per {BLOCK}-frame block, {mrays:.1f} Mrays/s "
           f"(traced segments / s) on {card}")
 
-    # one kernel serves both TPU kernels (pallas_trace_progressive at :519 and
-    # pallas_trace at :298); its times are those of a 30-frame 1080p block
+    grad_err, grad_times = grad_phases(dev, card, G)
+    train_launches, grad_launches = train_phases(dev, card, K, G)
+
+    # one kernel serves both forward TPU kernels (pallas_trace_progressive at
+    # :519 and pallas_trace at :298); its times are those of a 30-frame 1080p
+    # block, its launches those of the render path and the training path
     print(json.dumps({"kernels": [{
         "name": "trace_progressive_kernel",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:519",
-        "launches": launches,
+        "launches": launches + train_launches,
         "max_abs_err": max_err,
         "ms": times["block_ms"],
         "plain_ms": times["block_plain_ms"],
+    }, {
+        "name": "trace_grad_kernel",
+        "route": "cuda",
+        "source": "tpt_torch/csrc/trace_grad.cu",
+        "replaces": "tpt/kernels/trace_grad.py:446",
+        "launches": grad_launches,
+        "max_abs_err": grad_err,
+        "ms": grad_times["ms"],
+        "plain_ms": grad_times["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -33,149 +33,22 @@
 // the environment inline at escape instead of storing miss slots, FMA
 // contraction, and compile-time primitive counts.
 //
-// Parity policy.  The plain PyTorch version (tpt_torch/integrator.py) rounds
-// every operation on its own, so this file is compiled with -fmad=false and
-// without --use_fast_math (IEEE division and square root stay on): a
-// contracted FMA shifts a float by an ulp, which can flip the lobe roll,
-// the Russian-roulette roll against p_max or a closest-hit near-tie.  Every
-// expression below keeps the plain version's operation order, and uses
-// expf / sinf / cosf / sqrtf, the functions PyTorch's CUDA elementwise ops
-// call.  min/max propagate NaN like torch.minimum/maximum (an origin on a
-// slab plane with a zero direction component gives 0/0 in ray_cuboid), and
-// sign() is 0 at 0 like torch.sign.
+// Parity policy: see common.cuh.  Every float operation repeats the plain
+// PyTorch version's, in the same order, with no FMA contraction.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxSpheres = 256;
-constexpr int kMaxCuboids = 64;
-constexpr int kMatLanes = 14;      // material lanes 0..13 (14, 15 are padding)
-constexpr int kMatStride = 16;
+using namespace tpt;
+
 constexpr int kBlock = 128;
 
-constexpr float kFloatMax = 3.4028235e38f;
-constexpr float kEps = 0.001f;             // KERNEL_EPSILON
-constexpr float kTwoPi = 6.28318530717958647692f;  // rounds to float32(2*pi)
-constexpr float kU32ToFloat = 1.0f / 4294967296.0f;  // 2^-32, exact
-constexpr float kTiny = 1e-20f;
-constexpr float kTirLen2 = 1e-12f;
-
-struct Camera {
-  float ip00, ip01, ip02, ip10, ip11, ip12;
-  float right[3], up[3], backward[3], eye[3];
-  float focal, aperture;
-};
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 make(float x, float y, float z) { return V3{x, y, z}; }
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return make(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return make(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 operator-(V3 a) { return make(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return make(a.x * b.x, a.y * b.y, a.z * b.z); }
-__device__ __forceinline__ V3 operator*(V3 a, float s) { return make(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ V3 operator/(V3 a, float s) { return make(a.x / s, a.y / s, a.z / s); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-
-// torch.minimum / torch.maximum: NaN in either operand gives NaN.
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
-// torch.sign: (0 < x) - (x < 0), so 0 at +-0.
-__device__ __forceinline__ float sgn(float x) {
-  return static_cast<float>((0.f < x) - (x < 0.f));
-}
-
-// normalize3(a) and normalize3(a, eps): a / sqrt(max(dot(a, a), eps)).
-__device__ __forceinline__ V3 normalize(V3 a) { return a / sqrtf(dot(a, a)); }
-__device__ __forceinline__ V3 normalize_floor(V3 a, float eps) {
-  return a / sqrtf(nmax(dot(a, a), eps));
-}
-// mix3(a, b, t) = a + (b - a) * t
-__device__ __forceinline__ V3 mix(V3 a, V3 b, float t) { return a + (b - a) * t; }
-
-// ---- PCG hash RNG (tpt_torch/rng.py; compute.glsl:334-344) ----
-__device__ __forceinline__ uint32_t pixel_seed(uint32_t x, uint32_t y, uint32_t frame) {
-  return (x * 1973u + y * 9277u + frame * 2699u) | 1u;
-}
-__device__ __forceinline__ float rand01(uint32_t& seed) {
-  seed = seed * 747796405u + 2891336453u;
-  uint32_t word = ((seed >> ((seed >> 28u) + 4u)) ^ seed) * 277803737u;
-  word = (word >> 22u) ^ word;
-  return __uint2float_rn(word) * kU32ToFloat;
-}
-
-// cosine_sample_hemisphere (tpt_torch/ops/sampling.py)
-__device__ __forceinline__ V3 cosine_hemisphere(V3 n, float r_z, float r_angle) {
-  float z = r_z * 2.0f - 1.0f;
-  float a = r_angle * kTwoPi;
-  float r = sqrtf(nmax(1.0f - z * z, 0.0f));
-  float x = r * cosf(a);
-  float y = r * sinf(a);
-  return normalize(n + make(x, y, z));
-}
-
 struct SceneSmem {
-  float sph[kMaxSpheres * 4];             // center.xyz, radius
+  GeomSmem g;
   float smat[kMaxSpheres * kMatLanes];
-  float cmin[kMaxCuboids * 3];
-  float cmax[kMaxCuboids * 3];
   float cmat[kMaxCuboids * kMatLanes];
 };
-
-struct Hit {
-  bool found;
-  bool inside;
-  int idx;
-  float t;
-};
-
-// Closest-hit fold in the shader's scan order (compute.glsl:226-258):
-// spheres first, then cuboids; a candidate wins when ok && t2 > 0 &&
-// t1 < best (raw t1 against the incumbent's smallest positive t).
-__device__ __forceinline__ Hit closest_hit(const SceneSmem& sc, int ns, int nc, V3 o, V3 d) {
-  float best_t = kFloatMax;
-  int best_idx = -1;
-  bool inside = false;
-  for (int i = 0; i < ns; ++i) {
-    V3 oc = o - make(sc.sph[4 * i], sc.sph[4 * i + 1], sc.sph[4 * i + 2]);
-    float r = sc.sph[4 * i + 3];
-    float b = dot(d, oc);
-    float c = dot(oc, oc) - r * r;
-    float disc = b * b - c;
-    bool ok = disc >= 0.0f;
-    float sq = sqrtf(ok ? nmax(disc, 0.0f) : 1.0f);
-    float t1 = -b - sq;
-    float t2 = -b + sq;
-    if (ok && t2 > 0.0f && t1 < best_t) {
-      best_t = (t1 < 0.0f) ? t2 : t1;
-      best_idx = i;
-      inside = best_t == t2;
-    }
-  }
-  for (int i = 0; i < nc; ++i) {
-    const float* mn = &sc.cmin[3 * i];
-    const float* mx = &sc.cmax[3 * i];
-    float t0x = (mn[0] - o.x) / d.x, t0y = (mn[1] - o.y) / d.y, t0z = (mn[2] - o.z) / d.z;
-    float t1x = (mx[0] - o.x) / d.x, t1y = (mx[1] - o.y) / d.y, t1z = (mx[2] - o.z) / d.z;
-    float t1 = nmax(nmax(nmin(t0x, t1x), nmax(nmin(t0y, t1y), nmin(t0z, t1z))), -kFloatMax);
-    float t2 = nmin(nmin(nmax(t0x, t1x), nmin(nmax(t0y, t1y), nmax(t0z, t1z))), kFloatMax);
-    bool ok = t1 <= t2;
-    if (ok && t2 > 0.0f && t1 < best_t) {
-      best_t = (t1 < 0.0f) ? t2 : t1;
-      best_idx = kMaxSpheres + i;
-      inside = best_t == t2;
-    }
-  }
-  return Hit{best_t != kFloatMax, inside, best_idx, best_t};
-}
 
 struct Path {
   V3 o, d, thr, rad, miss_d, miss_t;
@@ -186,7 +59,7 @@ struct Path {
 // One bounce of the Radiance loop (compute.glsl:132-182) on a live path;
 // tpt_torch.integrator.bounce_step restricted to its alive lane.
 __device__ __forceinline__ void bounce(const SceneSmem& sc, int ns, int nc, bool rr, Path& p) {
-  Hit h = closest_hit(sc, ns, nc, p.o, p.d);
+  Hit h = closest_hit(sc.g, ns, nc, p.o, p.d);
   if (!h.found) {  // escaped: defer the environment fetch
     p.miss_d = p.d;
     p.miss_t = p.thr;
@@ -210,18 +83,12 @@ __device__ __forceinline__ void bounce(const SceneSmem& sc, int ns, int nc, bool
   V3 hp = p.o + p.d * t;
   V3 n;
   if (is_sphere) {
-    const float* s = &sc.sph[4 * h.idx];
+    const float* s = &sc.g.sph[4 * h.idx];
     n = (hp - make(s[0], s[1], s[2])) / nmax(s[3], kEps);
   } else {
     const int j = h.idx - kMaxSpheres;
-    V3 mn = make(sc.cmin[3 * j], sc.cmin[3 * j + 1], sc.cmin[3 * j + 2]);
-    V3 mx = make(sc.cmax[3 * j], sc.cmax[3 * j + 1], sc.cmax[3 * j + 2]);
-    V3 half = (mx - mn) * 0.5f;
-    V3 cs = hp - (mx + mn) * 0.5f;
-    V3 act = make(fabsf(fabsf(cs.x) - half.x) <= kEps ? 1.0f : 0.0f,
-                  fabsf(fabsf(cs.y) - half.y) <= kEps ? 1.0f : 0.0f,
-                  fabsf(fabsf(cs.z) - half.z) <= kEps ? 1.0f : 0.0f);
-    n = normalize_floor(make(sgn(cs.x), sgn(cs.y), sgn(cs.z)) * act, kTiny);
+    n = cuboid_normal(make(sc.g.cmin[3 * j], sc.g.cmin[3 * j + 1], sc.g.cmin[3 * j + 2]),
+                      make(sc.g.cmax[3 * j], sc.g.cmax[3 * j + 1], sc.g.cmax[3 * j + 2]), hp);
   }
   if (inside) n = -n;
 
@@ -315,13 +182,9 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
                          float* __restrict__ miss_dir, float* __restrict__ miss_thr,
                          int32_t* __restrict__ ray_count, int64_t* __restrict__ seed_out) {
   __shared__ SceneSmem sc;
-  for (int k = threadIdx.x; k < ns * 4; k += blockDim.x) sc.sph[k] = sphere_pos_radius[k];
+  stage_geometry(sc.g, sphere_pos_radius, cuboid_min, cuboid_max, ns, nc);
   for (int k = threadIdx.x; k < ns * kMatLanes; k += blockDim.x)
     sc.smat[k] = sphere_material[(k / kMatLanes) * kMatStride + k % kMatLanes];
-  for (int k = threadIdx.x; k < nc * 3; k += blockDim.x) {
-    sc.cmin[k] = cuboid_min[k];
-    sc.cmax[k] = cuboid_max[k];
-  }
   for (int k = threadIdx.x; k < nc * kMatLanes; k += blockDim.x)
     sc.cmat[k] = cuboid_material[(k / kMatLanes) * kMatStride + k % kMatLanes];
   __syncthreads();
@@ -335,11 +198,6 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
   const float fpy = static_cast<float>(py);
   const float fw = static_cast<float>(width);
   const float fh = static_cast<float>(height);
-  const V3 right = make(cam.right[0], cam.right[1], cam.right[2]);
-  const V3 up = make(cam.up[0], cam.up[1], cam.up[2]);
-  const V3 backward = make(cam.backward[0], cam.backward[1], cam.backward[2]);
-  const V3 eye = make(cam.eye[0], cam.eye[1], cam.eye[2]);
-  const float half_ap = cam.aperture * 0.5f;
 
   V3 acc = make(0.0f, 0.0f, 0.0f);
   int32_t rays = 0;
@@ -347,34 +205,9 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
   for (int f = 0; f < n_valid; ++f) {
     for (int s = 0; s < spp; ++s) {
       if (s == 0) seed = pixel_seed(px, py, static_cast<uint32_t>(frame0 + f));
-      // sample_draws: jitter x/y, lens angle, lens radius
-      float jx = rand01(seed);
-      float jy = rand01(seed);
-      float r_angle = rand01(seed);
-      float r_radius = rand01(seed);
-
-      // primary_ray (compute.glsl:113-121,352-357)
-      float u, v;
-      if (jitter_center) {
-        u = ((fpx + 0.5f) / fw + (jx - 0.5f) / fw) * 2.0f - 1.0f;
-        v = ((fpy + 0.5f) / fh + (jy - 0.5f) / fh) * 2.0f - 1.0f;
-      } else {
-        u = (fpx + jx) / fw * 2.0f - 1.0f;
-        v = (fpy + jy) / fh * 2.0f - 1.0f;
-      }
-      float ex = cam.ip00 * u + cam.ip01 * v - cam.ip02;
-      float ey = cam.ip10 * u + cam.ip11 * v - cam.ip12;
-      V3 d = normalize(right * ex + up * ey - backward);
-      V3 focal_point = eye + d * cam.focal;
-      float angle = r_angle * kTwoPi;
-      float rl = sqrtf(r_radius);
-      float cx = cosf(angle) * rl;
-      float cy = sinf(angle) * rl;
-      V3 o = eye + right * (half_ap * cx) + up * (half_ap * cy);
-
+      const Draws w = sample_draws(seed);
       Path p;
-      p.o = o;
-      p.d = normalize(focal_point - o);
+      primary_ray(cam, fpx, fpy, fw, fh, jitter_center != 0, w, p.o, p.d);
       p.thr = make(1.0f, 1.0f, 1.0f);
       p.rad = make(0.0f, 0.0f, 0.0f);
       p.miss_d = make(0.0f, 0.0f, 0.0f);
@@ -425,23 +258,17 @@ extern "C" int tpt_trace_progressive(
     int spp, int ray_depth, int jitter_center, int russian_roulette,
     float* rad_sum, float* miss_dir, float* miss_thr, int32_t* ray_count,
     int64_t* seed, void* stream) {
-  if (num_spheres < 0 || num_spheres > kMaxSpheres || num_cuboids < 0 ||
-      num_cuboids > kMaxCuboids || width <= 0 || height <= 0 || n_rows <= 0 ||
+  if (num_spheres < 0 || num_spheres > tpt::kMaxSpheres || num_cuboids < 0 ||
+      num_cuboids > tpt::kMaxCuboids || width <= 0 || height <= 0 || n_rows <= 0 ||
       n_frames < 0 || n_valid < 0 || n_valid > n_frames || spp <= 0 || ray_depth < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* c = camera_host;
-  Camera cam;
-  cam.ip00 = c[0]; cam.ip01 = c[1]; cam.ip02 = c[2];
-  cam.ip10 = c[4]; cam.ip11 = c[5]; cam.ip12 = c[6];
-  for (int r = 0; r < 3; ++r) {  // inverse-view columns
-    cam.right[r] = c[16 + r * 4 + 0];
-    cam.up[r] = c[16 + r * 4 + 1];
-    cam.backward[r] = c[16 + r * 4 + 2];
-    cam.eye[r] = c[16 + r * 4 + 3];
-  }
-  cam.focal = c[32];
-  cam.aperture = c[33];
+  const float* iv = c + 16;  // inverse view, row-major: column j is iv[j], iv[4 + j], iv[8 + j]
+  const float cam20[20] = {c[0], c[1], c[2], c[4], c[5], c[6],
+                           iv[0], iv[4], iv[8], iv[1], iv[5], iv[9],
+                           iv[2], iv[6], iv[10], iv[3], iv[7], iv[11], c[32], c[33]};
+  const tpt::Camera cam = tpt::camera_from20(cam20);
 
   const int64_t npix = static_cast<int64_t>(n_rows) * width;
   const unsigned blocks = static_cast<unsigned>((npix + kBlock - 1) / kBlock);

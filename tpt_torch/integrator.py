@@ -20,22 +20,26 @@ behavior in these spots), kept from the JAX package:
     reflection direction;
   * normalize() of degenerate vectors is floored at 1e-20 squared length.
 
-These functions are the plain versions of the CUDA trace kernel
-(tpt_torch/csrc/trace.cu), which repeats every float operation below in
-the same order.  They run on any device.
+These functions are the plain versions of the CUDA kernels
+(tpt_torch/csrc/trace.cu, trace_grad.cu), which repeat every float
+operation below in the same order.  They run on any device and are
+differentiable with autograd: as in the JAX package, discrete decisions
+(closest-hit winner, lobe pick, Russian roulette) carry no gradient, and
+every maximum against a constant splits ties like ``jnp.maximum``
+(tpt_torch.vecmath.max_const).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import rng
 from .config import MAX_SPHERES, KERNEL_EPSILON
-from .vecmath import div_scalar, dot3, normalize3, max3, mix
+from .vecmath import div_scalar, dot3, max_const, normalize3, max3, mix
 from .ops.intersect import (FLOAT_MAX, ray_sphere, ray_cuboid,
                             smallest_positive, sphere_normal, cuboid_normal)
 from .ops.sampling import cosine_sample_hemisphere, uniform_sample_unit_circle
@@ -57,50 +61,68 @@ class Winner(NamedTuple):
     is_sphere: torch.Tensor      # bool[*batch]
 
 
+Scalar = Union[float, torch.Tensor]
+
+
 @dataclasses.dataclass(frozen=True)
 class CameraParams:
-    """Camera inputs as f32 values held in Python floats.
+    """Camera inputs as f32 scalars: Python floats, or 0-d f32 tensors that
+    autograd follows back to the matrices they were taken from.
 
     ``ip??`` are inverse-projection elements used by the eye-ray transform;
     ``right``/``up``/``backward``/``eye`` are the inverse-view columns."""
-    ip00: float
-    ip01: float
-    ip02: float
-    ip10: float
-    ip11: float
-    ip12: float
-    right: Tuple[float, float, float]
-    up: Tuple[float, float, float]
-    backward: Tuple[float, float, float]
-    eye: Tuple[float, float, float]
-    focal_length: float
-    aperture_diameter: float
+    ip00: Scalar
+    ip01: Scalar
+    ip02: Scalar
+    ip10: Scalar
+    ip11: Scalar
+    ip12: Scalar
+    right: Tuple[Scalar, Scalar, Scalar]
+    up: Tuple[Scalar, Scalar, Scalar]
+    backward: Tuple[Scalar, Scalar, Scalar]
+    eye: Tuple[Scalar, Scalar, Scalar]
+    focal_length: Scalar
+    aperture_diameter: Scalar
+
+
+def _scalar(x) -> Scalar:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).reshape(())
+    return float(np.float32(x))
 
 
 def camera_params(inv_proj, inv_view, focal_length, aperture_diameter) -> CameraParams:
     """Build CameraParams from 4x4 inverse matrices (element extraction only).
 
+    Tensors are kept: the entries are 0-d views of the matrices, so a
+    gradient reaches ``inv_proj``, ``inv_view``, the focal length and the
+    aperture.  Host values (numpy arrays, floats) become Python floats.
     The view position is inv_view's translation column — identical to the
     ViewPos the reference uploads (Camera.Position, src/MainWindow.cs:132)."""
-    def host(m):
-        m = m.detach().cpu() if isinstance(m, torch.Tensor) else m
+    def entries(m):
+        if isinstance(m, torch.Tensor):
+            return m.to(torch.float32)
         return np.asarray(m, np.float32).tolist()
 
-    ip, iv = host(inv_proj), host(inv_view)
+    ip, iv = entries(inv_proj), entries(inv_view)
     col = lambda j: (iv[0][j], iv[1][j], iv[2][j])
     return CameraParams(
         ip00=ip[0][0], ip01=ip[0][1], ip02=ip[0][2],
         ip10=ip[1][0], ip11=ip[1][1], ip12=ip[1][2],
         right=col(0), up=col(1), backward=col(2), eye=col(3),
-        focal_length=float(np.float32(focal_length)),
-        aperture_diameter=float(np.float32(aperture_diameter)),
+        focal_length=_scalar(focal_length),
+        aperture_diameter=_scalar(aperture_diameter),
     )
 
 
 def _splat(components, like: torch.Tensor) -> torch.Tensor:
     """Broadcast 3 scalars to f32[3, *batch] of ``like``."""
-    return torch.tensor(components, dtype=torch.float32, device=like.device).view(
-        (3,) + (1,) * like.dim()).expand((3,) + tuple(like.shape))
+    if any(isinstance(c, torch.Tensor) for c in components):
+        v = torch.stack([torch.as_tensor(c, dtype=torch.float32) for c in components])
+        v = v.to(like.device)
+    else:
+        v = torch.tensor(components, dtype=torch.float32, device=like.device)
+    return v.view((3,) + (1,) * like.dim()).expand((3,) + tuple(like.shape))
 
 
 # trace_fn(origin, direction) -> (found bool, t f32, inside bool, Winner)
@@ -184,6 +206,72 @@ def make_scene_trace_fn(scene, counts: Tuple[int, int] | None = None) -> TraceFn
     return trace
 
 
+ATTR_ROWS = 128   # at most ns + nc primitives
+ATTR_COLS = 24    # 0:4 sphere geom | 4:10 cuboid geom | 10:24 material
+
+
+def build_attr_table(scene, counts: Tuple[int, int]) -> torch.Tensor:
+    """Pack the differentiable scene parameters into the winner-attribute
+    table f32[ATTR_ROWS, ATTR_COLS]: row i < ns = sphere i (center, radius,
+    zeros, material lanes 0:14), row ns + j = cuboid j (zeros, min, max,
+    material lanes 0:14); zero-padded (tpt.integrator.build_attr_table).
+
+    Differentiable torch ops: autograd maps a table cotangent back to the
+    Scene leaves."""
+    ns, nc = counts
+    if ns + nc > ATTR_ROWS:
+        raise ValueError(f"the attribute table holds <= {ATTR_ROWS} primitives, got {ns}+{nc}")
+    z = dict(dtype=torch.float32, device=scene.device)
+    sph = torch.cat([scene.sphere_pos_radius[:ns], torch.zeros((ns, 6), **z),
+                     scene.sphere_material[:ns, :14]], dim=1)
+    cub = torch.cat([torch.zeros((nc, 4), **z), scene.cuboid_min[:nc],
+                     scene.cuboid_max[:nc], scene.cuboid_material[:nc, :14]], dim=1)
+    pad = torch.zeros((ATTR_ROWS - ns - nc, ATTR_COLS), **z)
+    return torch.cat([sph, cub, pad], dim=0)
+
+
+def table_hit_trace(table, num_spheres: int, origin, direction, idx, inside):
+    """Differentiable winner evaluation from a precomputed (detached) hit
+    record: the winner's row of the attribute table gathered by index, and
+    the winning distance recomputed from the gathered geometry — the
+    by-index form of tpt.integrator.onehot_hit_trace, with the same primal
+    values as the scan-and-gather trace.
+
+    ``idx``: the closest-hit fold's winner (-1 = miss, spheres i, cuboids
+    MAX_SPHERES + j); ``inside``: the fold's inside flag."""
+    found = idx >= 0
+    is_sphere = found & (idx < MAX_SPHERES)
+    row = torch.where(is_sphere, idx, idx - MAX_SPHERES + num_spheres)
+    attrs = torch.movedim(table[torch.clamp_min(row, 0).long()], -1, 0)
+    attrs = torch.where(found, attrs, 0.0)
+    center, radius = attrs[0:3], attrs[3]
+    cmin, cmax, mat = attrs[4:7], attrs[7:10], attrs[10:24]
+
+    # Gradient hygiene (as tpt): axis-parallel rays give ray_cuboid
+    # infinite partials (1/d); neutralise the direction on lanes whose
+    # winner is not a cuboid so 0-cotangent x inf can't NaN the transpose.
+    dir_c = torch.where(found & ~is_sphere, direction, 1.0)
+    t1s, t2s, _ = ray_sphere(origin, direction, center, max_const(radius, EPS))
+    t1c, t2c, _ = ray_cuboid(origin, dir_c, cmin, cmax)
+    t = smallest_positive(torch.where(is_sphere, t1s, t1c), torch.where(is_sphere, t2s, t2c))
+    return found, t, inside, Winner(material=mat, sphere_center=center,
+                                    sphere_radius=radius, cuboid_min=cmin,
+                                    cuboid_max=cmax, is_sphere=is_sphere)
+
+
+def make_table_trace_fn(scan_fn, table, num_spheres: int) -> TraceFn:
+    """Differentiable closest-hit trace: the scan fold on detached rays for
+    the winner index (the discrete argmin carries no gradient), then
+    :func:`table_hit_trace` for the attributes and ``t``."""
+
+    def trace(origin, direction):
+        with torch.no_grad():
+            _found, idx, _t, inside = scan_fn(origin.detach(), direction.detach())
+        return table_hit_trace(table, num_spheres, origin, direction, idx, inside)
+
+    return trace
+
+
 @dataclasses.dataclass(frozen=True)
 class PathState:
     """Per-lane bounce-loop carry."""
@@ -226,12 +314,12 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
     ior = mat[13]
 
     t_safe = torch.where(found, t, 1.0)            # miss lanes carry FLOAT_MAX
-    ior_safe = torch.clamp_min(ior, EPS)           # padded materials carry 0
+    ior_safe = max_const(ior, EPS)                 # padded materials carry 0
 
     hp = o + d * t_safe
     n_raw = torch.where(w.is_sphere,
                    sphere_normal(w.sphere_center,
-                                 torch.clamp_min(w.sphere_radius, EPS), hp),
+                                 max_const(w.sphere_radius, EPS), hp),
                    cuboid_normal(w.cuboid_min, w.cuboid_max, hp))
     n = torch.where(inside, -n_raw, n_raw)
 
@@ -271,13 +359,13 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
     # TIR with ~zero roughness degenerates to the zero vector (shader UB);
     # defined policy: mirror reflection.
     refr_dir = torch.where(refr_len2 > _TIR_LEN2,
-                      refr_mixed / torch.sqrt(torch.clamp_min(refr_len2, _TIR_LEN2)),
+                      refr_mixed / torch.sqrt(max_const(refr_len2, _TIR_LEN2)),
                       refl_pure)
 
     new_d = torch.where(take_spec, refl_dir, torch.where(take_refr, refr_dir, diffuse_ray))
     p = torch.where(take_spec, spec,
                     torch.where(take_refr, refr, 1.0 - spec - refr))
-    p = torch.clamp_min(p, EPS)
+    p = max_const(p, EPS)
     new_o = hp + new_d * EPS
 
     # --- throughput / radiance updates (compute.glsl:156-164) ---

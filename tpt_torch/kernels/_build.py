@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernel library of tpt_torch/csrc at first use.
+"""Build and load the CUDA kernel libraries of tpt_torch/csrc at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
-plain C interface, which is loaded with ctypes.  The build goes into
-``tpt_torch/_build/<hash>/``, keyed by a hash of the sources and flags, so
-an edited source rebuilds and an unchanged one loads at once.  Nothing is
-built when the module is imported: the CPU tests import every module.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process into a
+shared library with a plain C interface; the processes run in parallel and
+the libraries are loaded with ctypes.  A library goes into
+``tpt_torch/_build/<hash>/``, keyed by a hash of the flags, its source and
+every ``csrc/*.cuh`` header, so an edited source or header rebuilds and an
+unchanged one loads at once.  Nothing is built when the module is imported:
+the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -16,18 +18,28 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-LIB_NAME = "libtpt_torch_kernels.so"
 
-# -fmad=false and no --use_fast_math: the parity policy of csrc/trace.cu.
+# -fmad=false and no --use_fast_math: the parity policy of csrc/common.cuh.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry point -> (source file, argument types); every entry returns a CUDA error code
+ENTRY_POINTS = {
+    # 5 scene pointers, 2 counts, the host camera pointer, 11 ints,
+    # 5 output pointers, the stream
+    "tpt_trace_progressive": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
+    # 4 scene/table pointers, 2 counts, the device cam20 pointer, 11 ints,
+    # 3 cotangent pointers, 2 output pointers, the stream
+    "tpt_trace_grad": ("trace_grad.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
+}
 
 
 def find_nvcc() -> str:
@@ -38,48 +50,62 @@ def find_nvcc() -> str:
 
 
 def _sources():
-    return sorted(SRC_DIR.glob("*.cu"))
+    return sorted({src for src, _ in ENTRY_POINTS.values()})
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+    for path in [SRC_DIR / source] + sorted(SRC_DIR.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16] / f"lib{Path(source).stem}.so"
 
 
-def ensure_built() -> Tuple[Path, str]:
-    """Compile the library unless this source hash is built already.
-    Returns (path, compiler output); the output is empty when nothing was
-    built.  The library is written to a temporary name and renamed into
-    place, so concurrent builds never load a partial file."""
-    path = library_path()
-    if path.exists():
-        return path, ""
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+def ensure_built() -> Tuple[Dict[str, Path], str]:
+    """Compile every library whose hash is not built yet, one nvcc process
+    per source, all started together.  Returns ({source: path}, compiler
+    output); the output is empty when nothing was built.  Each library is
+    written to a temporary name and renamed into place, so concurrent
+    builds never load a partial file."""
+    paths = {src: library_path(src) for src in _sources()}
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
+        for src, path in paths.items():
+            if path.exists():
+                continue
+            path.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / src)]
+            jobs.append((src, path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = []
+        for src, path, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc {src} failed ({proc.returncode}):\n{out}")
+            os.replace(tmp, path)
+            log.append(f"== {src}\n{out}")
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library with its entry point's signature set."""
-    path, _ = ensure_built()
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # 5 scene pointers, 2 counts, the host camera pointer, 11 ints,
-    # 5 output pointers, the stream
-    lib.tpt_trace_progressive.argtypes = [p] * 5 + [i] * 2 + [p] + [i] * 11 + [p] * 5 + [p]
-    lib.tpt_trace_progressive.restype = ctypes.c_int
-    return lib
+def load_library() -> types.SimpleNamespace:
+    """The entry points of the built libraries, with their signatures set,
+    as attributes of one namespace."""
+    paths, _ = ensure_built()
+    libs = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
+    fns = {}
+    for name, (src, argtypes) in ENTRY_POINTS.items():
+        fn = getattr(libs[src], name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return types.SimpleNamespace(libraries=libs, **fns)

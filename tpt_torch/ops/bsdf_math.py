@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..vecmath import dot3
+from ..vecmath import dot3, max_const, sqrt_clamped_grad
 
 
 def fresnel_schlick(cos_theta, n1, n2):
@@ -30,6 +30,6 @@ def refract3(incident, normal, eta):
     n_dot_i = dot3(normal, incident)
     k = 1.0 - eta * eta * (1.0 - n_dot_i * n_dot_i)
     tir = k < 0.0
-    sq = torch.sqrt(torch.where(tir, 1.0, torch.clamp_min(k, 0.0)))
+    sq = sqrt_clamped_grad(torch.where(tir, 1.0, max_const(k, 0.0)))
     out = eta * incident - (eta * n_dot_i + sq) * normal
     return torch.where(tir, 0.0, out), tir

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from ..config import KERNEL_EPSILON
-from ..vecmath import dot3, normalize3
+from ..vecmath import (dot3, max_const, maximum, min_const, minimum, normalize3,
+                       sqrt_clamped_grad)
 
 FLOAT_MAX = float(np.float32(3.4028235e38))
 FLOAT_MIN = float(np.float32(-3.4028235e38))
@@ -26,7 +27,7 @@ def ray_sphere(origin, direction, center, radius):
     c = dot3(oc, oc) - radius * radius
     disc = b * b - c
     ok = disc >= 0.0
-    sq = torch.sqrt(torch.where(ok, torch.clamp_min(disc, 0.0), 1.0))
+    sq = sqrt_clamped_grad(torch.where(ok, max_const(disc, 0.0), 1.0))
     return -b - sq, -b + sq, ok
 
 
@@ -35,14 +36,14 @@ def ray_cuboid(origin, direction, box_min, box_max):
 
     Axis-parallel rays divide by zero into +-inf, exactly like GLSL IEEE
     semantics.  An origin on a slab plane with a zero direction component
-    gives 0/0 = NaN; ``torch.minimum``/``maximum`` propagate it like
+    gives 0/0 = NaN; the minima and maxima propagate it like
     ``jnp.minimum``/``maximum``, so ``ok`` comes out false."""
     t0s = (box_min - origin) / direction
     t1s = (box_max - origin) / direction
-    tsm = torch.minimum(t0s, t1s)
-    tbg = torch.maximum(t0s, t1s)
-    t1 = torch.clamp_min(torch.maximum(tsm[0], torch.maximum(tsm[1], tsm[2])), FLOAT_MIN)
-    t2 = torch.clamp_max(torch.minimum(tbg[0], torch.minimum(tbg[1], tbg[2])), FLOAT_MAX)
+    tsm = minimum(t0s, t1s)
+    tbg = maximum(t0s, t1s)
+    t1 = max_const(maximum(tsm[0], maximum(tsm[1], tsm[2])), FLOAT_MIN)
+    t2 = min_const(minimum(tbg[0], minimum(tbg[1], tbg[2])), FLOAT_MAX)
     return t1, t2, t1 <= t2
 
 
