@@ -9,7 +9,13 @@ drives the port's two paths through their entry points:
     atmosphere, in 30-frame blocks, through ``tpt_torch.cli render``;
   * the training path: ``tpt_torch.inverse_demo`` (512x512, ray depth 8,
     two views, fixed-depth transport, clipped Adam, 200 steps), then 20
-    timed steps of the 1080p training step of benchmarks/train_bench.py.
+    timed steps of the 1080p training step of benchmarks/train_bench.py;
+  * the one-hot gather: ``trace(..., gather="onehot")`` at the four
+    one-frame shapes, bit for bit against the select kernel and against
+    its plain version;
+  * the backward-design probes through ``tpt_torch.bwd_probes``, then each
+    probe's kernel against its plain version and one PyTorch call for the
+    same function, at the harness's GRID = 100 and at a 1080p-sized 1013.
 
 Every phase prints one line; any failure raises and the script exits
 non-zero without printing a result.
@@ -17,8 +23,10 @@ non-zero without printing a result.
     python3 chip_smoke.py
 
 The second-to-last line is a JSON object with each kernel's launch count
-on the paths, its error against the plain version and its time against the
-plain version's; the last line is {"ok": true, "device": {...}}.
+on the paths, its error against the plain version, its time against the
+plain version's and one PyTorch call's, and its bound (the least time an
+H100 SXM could take for the same work); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -36,6 +44,24 @@ import torch
 WIDTH, HEIGHT, DEPTH, BLOCK = 1920, 1080, 13, 30
 REPO = os.path.dirname(os.path.abspath(__file__))
 TRAIN_STEPS, TRAIN_VIEWS = 200, 2
+PROBE_GRIDS = (100, 1013)   # the harness's, and 1013 x 16 x 128 = 2,074,624 (~1080p)
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense fp32 outside the
+# tensor cores, HBM3) for the bounds.
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+
+# Float operations of the trace kernels, counted from csrc/common.cuh and
+# csrc/trace.cu: one per add, multiply, divide, compare, min / max, sqrt,
+# exp, sin or cos (the random stream's integer work not counted).  A sphere
+# test of the fold (closest_hit) is 24, a cuboid's slab test 27; a bounce
+# past the fold (hit point, a sphere's normal, Fresnel, the diffuse lobe,
+# the draws' conversions, the throughput and roulette updates) about 110;
+# a sample's camera ray about 80.  The backward's reverse sweep replays each
+# bounce and runs its adjoint, counted as 3 x the primal, reverse mode's
+# usual ratio; the camera adjoint likewise.  Lower counts only lower the
+# bound, which is the least time the card could take.
+OPS_SPHERE, OPS_CUBOID, OPS_BOUNCE, OPS_CAMERA, ADJOINT = 24, 27, 110, 80, 3
+OPS_P4 = 33   # p4's f(x) + f'(x) g per element, counted from csrc/probes.cu
 
 
 def frame_cases():
@@ -55,6 +81,54 @@ def frame_cases():
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the fp32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scene_bytes(counts, table: bool) -> int:
+    """The live scene rows a trace kernel reads: the fold's geometry and the
+    material lanes (select) or the attribute table's rows (table mode)."""
+    ns, nc = counts
+    geometry = 4 * (4 * ns + 6 * nc)
+    return geometry + 4 * (24 * (ns + nc) if table else 14 * (ns + nc))
+
+
+def trace_bound(segments: int, samples: int, pixels: int, slots: int, counts, table=False):
+    """Bound of a forward launch: every traced segment's fold over the live
+    primitives and bounce, every sample's camera ray; the scene read once,
+    per pixel the radiance, 2 x slots miss vectors, the ray count and the
+    seed written once."""
+    ns, nc = counts
+    ops = segments * (OPS_SPHERE * ns + OPS_CUBOID * nc + OPS_BOUNCE) + samples * OPS_CAMERA
+    nbytes = scene_bytes(counts, table) + pixels * (12 + 2 * slots * 12 + 4 + 8)
+    return bound(ops, nbytes)
+
+
+def grad_bound(segments: int, samples: int, pixels: int, spp: int, counts):
+    """Bound of a backward launch: the forward sweep (fold and bounce), the
+    reverse sweep's replay and adjoint of each bounce, each sample's camera
+    ray and its adjoint; the cotangents (3 + 6 x spp floats a pixel), the
+    geometry, the table and the camera read once, d_table and d_cam written."""
+    ns, nc = counts
+    ops = (segments * (OPS_SPHERE * ns + OPS_CUBOID * nc + (2 + ADJOINT) * OPS_BOUNCE)
+           + samples * (1 + ADJOINT) * OPS_CAMERA)
+    nbytes = 4 * (4 * ns + 6 * nc) + 2 * 4 * (128 * 24 + 20) + pixels * 4 * (3 + 6 * spp)
+    return bound(ops, nbytes)
+
+
+def assert_bits_equal(got, want, what):
+    """All five outputs of two TraceResults equal bit for bit."""
+    for name in ("radiance", "miss_dir", "miss_thr", "ray_count", "seed"):
+        g, w = getattr(got, name), getattr(want, name)
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what}: {name} differs")
 
 
 def gpu_name_and_power() -> str:
@@ -171,9 +245,10 @@ def fmt_grads(errs, floors):
     return "; ".join(out)
 
 
-def grad_phases(dev, card, G):
+def grad_phases(dev, card, K, G):
     """The backward kernel against its plain version, and its time split.
-    Returns (max abs err, {"ms", "plain_ms"} at 1080p)."""
+    Returns (max abs err, {"ms", "plain_ms", "bound_ms", "bound_by"} at
+    1080p)."""
     from tpt_torch import CameraConfig, demo_scene
     from tpt_torch.camera import camera_matrices
     from tpt_torch.integrator import build_attr_table
@@ -237,9 +312,16 @@ def grad_phases(dev, card, G):
     summary, err = check(what, got, want)
     max_err = max(max_err, err)
     times = {"ms": cuda_ms(run, 5), "plain_ms": cuda_ms(run_plain, 1, warm_up=False)}
+    # the backward's forward sweep traces the segments of the forward frame
+    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    segments = int(K.trace(scene, ip, iv, 0, cam.focal_length, cam.aperture_diameter,
+                           **kw).ray_count.sum())
+    times["bound_ms"], times["bound_by"] = grad_bound(segments, WIDTH * HEIGHT,
+                                                      WIDTH * HEIGHT, 1, counts)
     phase("grad", f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernel) / "
           f"{int(want.n_zeroed)} (plain, {HEIGHT // band} bands); kernel {times['ms']:.2f} ms, "
-          f"plain {times['plain_ms']:.1f} ms ({card})")
+          f"plain {times['plain_ms']:.1f} ms, bound {times['bound_ms']:.4f} ms "
+          f"({times['bound_by']}, {segments} segments) ({card})")
 
     # the same launch shape cut into its row bands, each launched and filtered
     # alone: a non-finite camera cotangent (one axis-parallel pixel zeroes all
@@ -324,6 +406,195 @@ def train_phases(dev, card, K, G):
     return launches, grad_launches
 
 
+def onehot_phases(dev, card, K):
+    """The one-hot gather's path: ``trace(..., gather="onehot")`` at the
+    four one-frame shapes (its launches counted), then each result against
+    the select kernel and the plain one-hot version, bit for bit in all five
+    outputs, and the 1080p frame's time beside the select kernel's, in
+    turns.  Returns (launches, {"ms", "select_ms", "plain_ms", "bound_ms",
+    "bound_by"})."""
+    from tpt_torch import demo_scene
+    from tpt_torch.camera import camera_matrices
+
+    scene = demo_scene().build(dev)
+    counts = scene.counts
+    cases = []
+    K.ONEHOT_LAUNCHES = 0
+    for view, c, w, h, depth, spp, rr, jitter in frame_cases():
+        ip, iv, _ = camera_matrices(c, w, h)
+        args = (scene, ip, iv, 5, c.focal_length, c.aperture_diameter)
+        kw = dict(width=w, height=h, ray_depth=depth, spp=spp, rr=rr, jitter=jitter,
+                  counts=counts)
+        what = f"{w}x{h} {view} view depth {depth} spp {spp} rr {rr} {jitter}"
+        cases.append((what, args, kw, K.trace(*args, gather="onehot", **kw)))
+    torch.cuda.synchronize()
+    launches = K.ONEHOT_LAUNCHES
+    if launches != len(cases):
+        raise AssertionError(f"onehot: {launches} table-mode launches (want {len(cases)})")
+
+    times = {}
+    for what, args, kw, got in cases:
+        assert_bits_equal(got, K.trace(*args, **kw), f"onehot {what} vs the select kernel")
+        assert_bits_equal(got, K.trace_plain(*args, gather="onehot", **kw),
+                          f"onehot {what} vs its plain version")
+        line = f"{what}: all five outputs bit-equal to the select kernel and the plain version"
+        if kw["width"] == WIDTH:
+            onehot = lambda: K.trace(*args, gather="onehot", **kw)
+            select = lambda: K.trace(*args, **kw)
+            turns = [cuda_ms(select, 20), cuda_ms(onehot, 20), cuda_ms(onehot, 20),
+                     cuda_ms(select, 20)]
+            times["select_ms"], times["ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            times["plain_ms"] = cuda_ms(lambda: K.trace_plain(*args, gather="onehot", **kw), 1,
+                                        warm_up=False)
+            pixels, segments = kw["width"] * kw["height"], int(got.ray_count.sum())
+            times["bound_ms"], times["bound_by"] = trace_bound(
+                segments, pixels * kw["spp"], pixels, kw["spp"], counts, table=True)
+            line += (f"; per 1080p frame onehot {turns[1]:.3f} / {turns[2]:.3f} ms, select "
+                     f"{turns[0]:.3f} / {turns[3]:.3f} ms (select, onehot, onehot, select), "
+                     f"plain {times['plain_ms']:.1f} ms, bound {times['bound_ms']:.4f} ms "
+                     f"({times['bound_by']}, {segments} segments) ({card})")
+        phase("onehot", line)
+    return launches, times
+
+
+def probe_bound(name: str, n: int, rows: int, cols: int):
+    """Bound of one probe call on n elements (see probes.cu): a gather reads
+    idx and the table and writes n floats; a scatter reads idx and g (p5
+    only its last tile) and writes its table; p2 and p4 read x (= g) and
+    write n floats."""
+    from tpt_torch.kernels import probes as P
+    table_bytes = P.R * P.K * 4
+    if name in ("p1", "p3"):
+        return bound(0, n * 8 + table_bytes)
+    if name == "p2":
+        return bound(n, n * 8)
+    if name == "p4":
+        return bound(n * OPS_P4, n * 8)
+    if name == "p5":
+        tile = P.TR * P.L
+        return bound(tile, tile * 8 + rows * cols * 4)
+    return bound(n * (2 if name == "p6" else 1), n * 8 + rows * cols * 4)
+
+
+def probe_library_calls(idx, table, g):
+    """One PyTorch call per probe for the same function (timed as a
+    yardstick only; the port never calls them on the CUDA path); p4 has
+    none."""
+    from tpt_torch.kernels import probes as P
+    flat_idx, flat_g = idx.reshape(-1).long(), g.reshape(-1)
+    tail_idx, tail_g = idx[-P.TR:].reshape(-1).long(), g[-P.TR:].reshape(-1)
+    acc = torch.zeros(P.R, dtype=torch.float32, device=g.device)
+    sums = lambda: acc.index_add_(0, flat_idx, flat_g)
+    return {"p1": lambda: table[idx, 0], "p3": lambda: table[idx, 0],
+            "p1t": sums, "p7": sums, "p8": sums,
+            "p5": lambda: torch.bincount(tail_idx, weights=tail_g, minlength=P.P5_ROWS),
+            "p6": lambda: (torch.bincount(flat_idx, weights=flat_g, minlength=P.R),
+                           torch.bincount(flat_idx, minlength=P.R)),
+            "p2": lambda: g * 2, "p4": None}
+
+
+
+def check_probe(name: str, got, want) -> float:
+    """The probe bars: p1, p2, p3 and p6's columns 1-31 exact; the sums at
+    rtol 1e-5, atol 1e-5 x the largest magnitude (atomics reorder them); p4
+    at rtol 1e-5, atol 1e-6 (libm's tanh and exp).  Returns the max abs err."""
+    err = float((got - want).abs().max())
+    if name in ("p1", "p2", "p3"):
+        ok = torch.equal(got, want)
+    elif name == "p4":
+        ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+    elif name == "p6":
+        ok = torch.equal(got[:, 1:], want[:, 1:]) and torch.allclose(
+            got[:, 0], want[:, 0], rtol=1e-5, atol=1e-5 * float(want[:, 0].abs().max()))
+    else:
+        ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    if not ok:
+        raise AssertionError(f"probe {name}: kernel vs plain beyond its bar (max abs err {err:.3g})")
+    return err
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """Mean device time per call of ``fn`` in the CUDA kernels whose name
+    holds ``kernel``, from torch.profiler (the wrapper's host time left
+    out); None when the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def probe_phases(dev, card):
+    """The probes' path through ``tpt_torch.bwd_probes`` (every probe must
+    launch its kernel), then each probe's kernel against its plain version
+    and its library call at GRID 100 and 1013, with the kernel's own device
+    time beside the call's.  Returns the kernels-line
+    entries of the three probe kernels: launches from the path, the other
+    numbers those of each kernel's first probe at GRID 100, and every
+    probe's numbers under "probes"."""
+    from tpt_torch import bwd_probes
+    from tpt_torch.kernels import probes as P
+
+    for name in P.PROBES:
+        P.PROBE_LAUNCHES[name] = 0
+    rc = bwd_probes.main([])
+    torch.cuda.synchronize()
+    launches = dict(P.PROBE_LAUNCHES)
+    if rc != 0 or not all(launches.values()):
+        raise AssertionError(f"bwd_probes: rc {rc}, launches {launches}")
+    phase("probes", f"python -m tpt_torch.bwd_probes: rc {rc}, kernel launches {launches}")
+
+    per = {name: {} for name in P.PROBES}
+    for grid in PROBE_GRIDS:
+        inputs = bwd_probes.make_inputs(grid, dev)
+        n = inputs[2].numel()
+        library = probe_library_calls(*inputs)
+        reps = 50 if grid == PROBE_GRIDS[0] else 20
+        for name in P.PROBES:
+            fn, plain = getattr(P, name), getattr(P, f"{name}_plain")
+            got, want = fn(*inputs), plain(*inputs)
+            torch.cuda.synchronize()
+            err = check_probe(name, got, want)
+            rows, cols = P.output_shape(name, inputs[2].shape[0])
+            b_ms, b_by = probe_bound(name, n, rows, cols)
+            rec = {"max_abs_err": err, "ms": cuda_ms(lambda: fn(*inputs), reps),
+                   "plain_ms": cuda_ms(lambda: plain(*inputs), 5),
+                   "library_ms": (cuda_ms(library[name], reps) if library[name] else None),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "device_ms": device_ms(lambda: fn(*inputs), P.KERNEL_OF[name])}
+            per[name][grid] = rec
+            us = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"
+            phase("probes", f"{name} ({P.KERNEL_OF[name]}) GRID {grid}, {n} elements: max abs "
+                  f"err {err:.3g}; kernel {us(rec['ms'])} a call ({us(rec['device_ms'])} of it "
+                  f"in the kernel, by torch.profiler), plain {us(rec['plain_ms'])}, library "
+                  f"{'none' if rec['library_ms'] is None else us(rec['library_ms'])}, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}) ({card})")
+
+    entries = []
+    for kernel in ("probe_gather_kernel", "probe_scatter_kernel", "probe_elementwise_kernel"):
+        names = [n for n in P.PROBES if P.KERNEL_OF[n] == kernel]
+        first = per[names[0]][PROBE_GRIDS[0]]
+        entries.append({
+            "name": kernel, "route": "cuda", "source": "tpt_torch/csrc/probes.cu",
+            "replaces": f"benchmarks/exp_bwd_probes.py:{PROBE_LINES[names[0]]}",
+            "launches": sum(launches[n] for n in names),
+            "max_abs_err": max(r["max_abs_err"] for n in names for r in per[n].values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "at": f"{names[0]}, GRID {PROBE_GRIDS[0]}",
+            "probes": {n: {str(g): r for g, r in per[n].items()} for n in names}})
+    return entries
+
+
+# the line of each Pallas probe's definition in benchmarks/exp_bwd_probes.py
+PROBE_LINES = {"p1": 46, "p1t": 57, "p2": 73, "p3": 82, "p4": 94, "p5": 109, "p6": 126,
+               "p7": 148, "p8": 168}
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -393,14 +664,20 @@ def main() -> int:
     def run_plain():
         return K.trace_progressive_plain(scene, ip, iv, 0, focal, ap, **kw)
 
-    err_block = compare_refill(run(), run_plain())
+    got = run()
+    err_block = compare_refill(got, run_plain())
     max_err = max(max_err, err_tail, err_block)
     times["block_ms"] = cuda_ms(run, 3)
     times["block_plain_ms"] = cuda_ms(run_plain, 1, warm_up=False)
+    pixels = WIDTH * HEIGHT
+    times["bound_ms"], times["bound_by"] = trace_bound(
+        int(got.ray_count.sum()), pixels * BLOCK, pixels, BLOCK, scene.counts)
     phase("refill", f"256x256 4 frames (n_valid 3): integers exact, max abs err "
           f"{err_tail:.3g}; {WIDTH}x{HEIGHT} {BLOCK}-frame block: integers exact, max abs "
           f"err {err_block:.3g} (floats within rtol 1e-3 atol 1e-4); kernel "
-          f"{times['block_ms']:.2f} ms, plain {times['block_plain_ms']:.1f} ms ({card})")
+          f"{times['block_ms']:.2f} ms, plain {times['block_plain_ms']:.1f} ms, bound "
+          f"{times['bound_ms']:.3f} ms ({times['bound_by']}, {int(got.ray_count.sum())} "
+          f"segments) ({card})")
 
     # ---- 5. golden image through the kernel ----
     from tpt_torch.config import AtmosphereConfig
@@ -469,12 +746,17 @@ def main() -> int:
     phase("throughput", f"{ms_block:.2f} ms per {BLOCK}-frame block, {mrays:.1f} Mrays/s "
           f"(traced segments / s) on {card}")
 
-    grad_err, grad_times = grad_phases(dev, card, G)
+    grad_err, grad_times = grad_phases(dev, card, K, G)
     train_launches, grad_launches = train_phases(dev, card, K, G)
+
+    onehot_launches, onehot_times = onehot_phases(dev, card, K)
+    probe_kernels = probe_phases(dev, card)
 
     # one kernel serves both forward TPU kernels (pallas_trace_progressive at
     # :519 and pallas_trace at :298); its times are those of a 30-frame 1080p
-    # block, its launches those of the render path and the training path
+    # block, its launches those of the render path and the training path.
+    # Its table mode (the one-hot gather) is timed per 1080p frame.  No one
+    # PyTorch call computes a trace or its backward: library_ms is null.
     print(json.dumps({"kernels": [{
         "name": "trace_progressive_kernel",
         "route": "cuda",
@@ -484,6 +766,22 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": times["block_ms"],
         "plain_ms": times["block_plain_ms"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "trace_progressive_kernel<true> (gather=onehot)",
+        "route": "cuda",
+        "source": "tpt_torch/csrc/trace.cu",
+        "replaces": "tpt/kernels/trace.py:226",
+        "launches": onehot_launches,
+        "max_abs_err": 0.0,
+        "ms": onehot_times["ms"],
+        "plain_ms": onehot_times["plain_ms"],
+        "bound_ms": onehot_times["bound_ms"],
+        "bound_by": onehot_times["bound_by"],
+        "library_ms": None,
+        "select_ms": onehot_times["select_ms"],
     }, {
         "name": "trace_grad_kernel",
         "route": "cuda",
@@ -493,7 +791,10 @@ def main() -> int:
         "max_abs_err": grad_err,
         "ms": grad_times["ms"],
         "plain_ms": grad_times["plain_ms"],
-    }]}))
+        "bound_ms": grad_times["bound_ms"],
+        "bound_by": grad_times["bound_by"],
+        "library_ms": None,
+    }] + probe_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

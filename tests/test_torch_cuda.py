@@ -205,3 +205,71 @@ def test_profile_block_splits_a_train_step(device):
     summary, rows = profile_train_steps(64, 64, 2)
     assert summary["forward_kernel_ms_per_step"] > 0 and summary["backward_kernel_ms_per_step"] > 0
     assert summary["optimizer_ms_per_step"] >= 0 and 0.0 <= summary["idle_share"] < 1.0 and rows
+
+
+def assert_bits_equal(got, want):
+    for name in ("radiance", "miss_dir", "miss_thr", "ray_count", "seed"):
+        g, w = getattr(got, name), getattr(want, name)
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("spp,rr,jitter", [(1, True, "corner"), (2, False, "center")])
+def test_onehot_kernel_matches_select_and_plain(device, spp, rr, jitter):
+    """The one-hot gather's table mode against the select kernel and against
+    its plain version, bit for bit in all five outputs."""
+    scene, inv_p, inv_v, focal, ap = setup(device, 96)
+    kw = dict(width=96, height=96, ray_depth=13, spp=spp, rr=rr, jitter=jitter,
+              counts=scene.counts)
+    launches = (K.LAUNCHES, K.ONEHOT_LAUNCHES)
+    got = K.trace(scene, inv_p, inv_v, 5, focal, ap, gather="onehot", **kw)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES, K.ONEHOT_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    assert_bits_equal(got, K.trace(scene, inv_p, inv_v, 5, focal, ap, **kw))
+    assert_bits_equal(got, K.trace_plain(scene, inv_p, inv_v, 5, focal, ap, gather="onehot",
+                                         **kw))
+
+
+def test_probe_kernels_match_plain(device):
+    """Each probe's kernel against its plain version, under the bars of
+    tests/test_torch_probes.py, at the harness's GRID = 100."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    inputs = make_inputs(100, device)
+    for name in P.PROBES:
+        launches = P.PROBE_LAUNCHES[name]
+        got = getattr(P, name)(*inputs)
+        torch.cuda.synchronize()
+        assert P.PROBE_LAUNCHES[name] == launches + 1, name
+        want = getattr(P, f"{name}_plain")(*inputs)
+        if name in ("p1", "p2", "p3"):
+            assert torch.equal(got, want), name
+        elif name == "p4":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=name)
+        elif name == "p6":
+            assert torch.equal(got[:, 1:], want[:, 1:]), name
+            torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5,
+                                       atol=1e-5 * float(want[:, 0].abs().max()), msg=name)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()), msg=name)
+
+
+def test_probe_wrappers_reject_bad_inputs(device):
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    idx, table, g = make_inputs(2, device)
+    with pytest.raises(ValueError, match="idx"):
+        P.p1(idx.long(), table, g)
+    with pytest.raises(ValueError, match="table"):
+        P.p1t(idx, table.cpu(), g)
+
+
+def test_bwd_probes_main_launches_every_probe(device, capsys):
+    from tpt_torch import bwd_probes
+    from tpt_torch.kernels import probes as P
+    before = dict(P.PROBE_LAUNCHES)
+    assert bwd_probes.main([]) == 0
+    assert all(P.PROBE_LAUNCHES[n] == before[n] + 4 for n in P.PROBES)   # 1 warm-up + 3 timed
+    assert capsys.readouterr().out.count(": OK ") == len(P.PROBES)

@@ -259,6 +259,37 @@ def table_hit_trace(table, num_spheres: int, origin, direction, idx, inside):
                                     cuboid_max=cmax, is_sphere=is_sphere)
 
 
+def make_onehot_gather_trace_fn(scan_fn, table, num_spheres: int) -> TraceFn:
+    """The forward trace of the one-hot TPU kernel
+    (tpt/kernels/trace.py:235-254): the scan fold gives found, the winner,
+    ``t`` and inside (``t`` is the fold's own, not recomputed as in
+    :func:`table_hit_trace`), and the winner's attributes are its row of
+    ``table`` (:func:`build_attr_table`), zero on a miss.  Sphere i is row
+    i, cuboid j is row ``num_spheres + j``.
+
+    The TPU kernel takes the row with a one-hot [24, 128] x [128, B]
+    product because it has no per-lane gather; reading by index gives the
+    same values, so this trace is bit-identical to the select gather of
+    :func:`make_scene_trace_fn`.  One value could differ: the product turns
+    a -0.0 in the table into +0.0 where the index read keeps it.  Such a
+    zero reaches an output only as the sign of a zero (a -0.0 albedo gives
+    a -0.0 throughput in ``miss_thr``), which compares equal, and neither
+    the demo nor the Cornell table holds one."""
+
+    def trace(origin, direction):
+        found, idx, t, inside = scan_fn(origin, direction)
+        hit = idx >= 0
+        is_sphere = hit & (idx < MAX_SPHERES)
+        row = torch.where(is_sphere, idx, idx - MAX_SPHERES + num_spheres)
+        attrs = torch.movedim(table[torch.clamp_min(row, 0).long()], -1, 0)
+        attrs = torch.where(hit, attrs, 0.0)
+        return found, t, inside, Winner(material=attrs[10:24], sphere_center=attrs[0:3],
+                                        sphere_radius=attrs[3], cuboid_min=attrs[4:7],
+                                        cuboid_max=attrs[7:10], is_sphere=is_sphere)
+
+    return trace
+
+
 def make_table_trace_fn(scan_fn, table, num_spheres: int) -> TraceFn:
     """Differentiable closest-hit trace: the scan fold on detached rays for
     the winner index (the discrete argmin carries no gradient), then

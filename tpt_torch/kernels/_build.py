@@ -30,15 +30,25 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> (source file, argument types); every entry returns a CUDA error code
 ENTRY_POINTS = {
     # 5 scene pointers, 2 counts, the host camera pointer, 11 ints,
     # 5 output pointers, the stream
     "tpt_trace_progressive": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
+    # 3 geometry pointers, the table, 2 counts, the host camera pointer,
+    # 9 ints, 5 output pointers, the stream
+    "tpt_trace_onehot": ("trace.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 9 + [_P] * 5 + [_P]),
     # 4 scene/table pointers, 2 counts, the device cam20 pointer, 11 ints,
     # 3 cotangent pointers, 2 output pointers, the stream
     "tpt_trace_grad": ("trace_grad.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
+    # idx, table, cols, col, n, out, the stream
+    "tpt_probe_gather": ("probes.cu", [_P, _P, _I, _I, _L, _P, _P]),
+    # idx, g, first, n, the host column weights a and c, rows, cols,
+    # scratch, d, the stream
+    "tpt_probe_scatter": ("probes.cu", [_P, _P, _L, _L, _P, _P, _I, _I, _P, _P, _P]),
+    # x, g, n, mode, out, the stream
+    "tpt_probe_elementwise": ("probes.cu", [_P, _P, _L, _I, _P, _P]),
 }
 
 

@@ -1,18 +1,25 @@
 """The trace kernel's wrappers and their plain PyTorch versions.
 
-One CUDA kernel (tpt_torch/csrc/trace.cu) replaces both TPU kernels of the
-JAX package's render path:
+One CUDA kernel (tpt_torch/csrc/trace.cu) replaces the TPU kernels of the
+JAX package's forward trace:
 
   * :func:`trace_progressive` — tpt.kernels.trace.pallas_trace_progressive,
     the refill kernel: ``n_frames`` progressive frames in one launch;
   * :func:`trace` — tpt.kernels.trace.pallas_trace, one frame; the same
-    kernel at ``n_frames=1`` with the outputs renamed.
+    kernel at ``n_frames=1`` with the outputs renamed.  Both of its winner
+    gathers are ported: ``gather="select"`` (the default) reads the
+    winner's scene rows, ``gather="onehot"`` its row of the attribute table
+    (tpt_torch.integrator.build_attr_table), the form whose TPU kernel
+    takes the row with a one-hot matrix product.  The two give the same
+    bits; the one-hot form launches the kernel's table mode through an
+    entry point of its own.
 
 Dispatch follows the tensors: for a scene on the CPU the wrappers run
 :func:`trace_progressive_plain` / :func:`trace_plain`; for a scene on a
 CUDA device they launch the kernel or raise.  There is no fallback from
 the device to the plain version.  ``LAUNCHES`` counts kernel launches, so
-a run can show that its main path went through the kernel.
+a run can show that its main path went through the kernel;
+``ONEHOT_LAUNCHES`` counts those of them made in the table mode.
 
 Keyword arguments are those of the JAX wrappers.  ``counts`` (static
 primitive counts there) is accepted and bounds the scan like the scene's
@@ -28,11 +35,14 @@ from typing import Tuple
 import torch
 
 from ..config import MAX_CUBOIDS, MAX_SPHERES
-from ..integrator import (ProgressiveTraceResult, TraceResult, camera_params,
+from ..integrator import (ATTR_ROWS, ProgressiveTraceResult, TraceResult, build_attr_table,
+                          camera_params, make_onehot_gather_trace_fn, make_scene_scan_fn,
                           make_scene_trace_fn, trace_paths)
 from ..integrator import trace_progressive as _integrator_trace_progressive
 
 LAUNCHES = 0
+ONEHOT_LAUNCHES = 0
+GATHERS = ("select", "onehot")
 
 _SCENE_SHAPES = {
     "sphere_pos_radius": (MAX_SPHERES, 4),
@@ -52,6 +62,14 @@ def _check_args(jitter: str, spp: int, ray_depth: int, n_frames: int, n_valid: i
         raise ValueError(f"n_valid must be in [0, n_frames={n_frames}], got {n_valid}")
 
 
+def _check_gather(gather: str, counts):
+    """The TPU wrapper's two checks (tpt/kernels/trace.py:323-326)."""
+    if gather not in GATHERS:
+        raise ValueError(f"gather must be 'select' or 'onehot', got {gather!r}")
+    if gather == "onehot" and counts is None:
+        raise ValueError("gather='onehot' requires static counts")
+
+
 def pixel_band(width: int, height: int, n_rows: int, row0: int, device):
     """Pixel coordinates (px, py) i32[n_rows, width] of the row band that
     starts at traced row ``row0``; rows past the image clamp to the last
@@ -65,15 +83,23 @@ def pixel_band(width: int, height: int, n_rows: int, row0: int, device):
 def trace_plain(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
                 *, width: int, height: int, ray_depth: int, spp: int,
                 counts: Tuple[int, int] | None = None, n_rows: int | None = None,
-                row0: int = 0, jitter: str = "corner", rr: bool = True) -> TraceResult:
+                row0: int = 0, jitter: str = "corner", rr: bool = True,
+                gather: str = "select") -> TraceResult:
     """Plain version of :func:`trace`: tpt_torch.integrator.trace_paths over
-    the pixel band, on the scene's device."""
+    the pixel band, on the scene's device, with the select gather or the
+    one-hot form's table read (make_onehot_gather_trace_fn)."""
+    _check_gather(gather, counts)
     _check_args(jitter, spp, ray_depth, 1, 1)
     n_rows = height if n_rows is None else n_rows
     px, py = pixel_band(width, height, n_rows, row0, scene.device)
     cam = camera_params(inv_proj, inv_view, focal_length, aperture_diameter)
-    return trace_paths(make_scene_trace_fn(scene, counts), cam, px, py, width, height,
-                       int(frame), ray_depth, spp, jitter=jitter, russian_roulette=rr)
+    if gather == "onehot":
+        trace_fn = make_onehot_gather_trace_fn(make_scene_scan_fn(scene, counts),
+                                               build_attr_table(scene, counts), counts[0])
+    else:
+        trace_fn = make_scene_trace_fn(scene, counts)
+    return trace_paths(trace_fn, cam, px, py, width, height, int(frame), ray_depth, spp,
+                       jitter=jitter, russian_roulette=rr)
 
 
 def trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
@@ -108,8 +134,8 @@ def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch
 
 def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, *,
             width, height, ray_depth, spp, n_frames, n_valid, counts, n_rows, row0,
-            jitter, rr) -> ProgressiveTraceResult:
-    global LAUNCHES
+            jitter, rr, gather="select") -> ProgressiveTraceResult:
+    global LAUNCHES, ONEHOT_LAUNCHES
     from ._build import load_library
 
     device = scene.device
@@ -126,6 +152,11 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
         raise ValueError(f"counts out of range: {(ns, nc)}")
     if width <= 0 or height <= 0 or n_rows <= 0:
         raise ValueError(f"empty band: width={width} height={height} n_rows={n_rows}")
+    if gather == "onehot":
+        if ns + nc > ATTR_ROWS:
+            raise ValueError(f"the attribute table holds <= {ATTR_ROWS} primitives, "
+                             f"got {ns}+{nc}")
+        table = build_attr_table(scene, (ns, nc)).detach().contiguous()
 
     n_slots = n_frames * spp
     f32 = dict(dtype=torch.float32, device=device)
@@ -137,19 +168,29 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
     cam = _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter)
 
     lib = load_library()
+    outs = (rad_sum.data_ptr(), miss_dir.data_ptr(), miss_thr.data_ptr(),
+            ray_count.data_ptr(), seed.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tpt_trace_progressive(
-            scene.sphere_pos_radius.data_ptr(), scene.sphere_material.data_ptr(),
-            scene.cuboid_min.data_ptr(), scene.cuboid_max.data_ptr(),
-            scene.cuboid_material.data_ptr(), ns, nc, cam.data_ptr(),
-            width, height, n_rows, int(row0), int(frame0), n_frames, n_valid, spp,
-            ray_depth, int(jitter == "center"), int(bool(rr)),
-            rad_sum.data_ptr(), miss_dir.data_ptr(), miss_thr.data_ptr(),
-            ray_count.data_ptr(), seed.data_ptr(), stream)
+        if gather == "onehot":
+            entry = "tpt_trace_onehot"
+            err = lib.tpt_trace_onehot(
+                scene.sphere_pos_radius.data_ptr(), scene.cuboid_min.data_ptr(),
+                scene.cuboid_max.data_ptr(), table.data_ptr(), ns, nc, cam.data_ptr(),
+                width, height, n_rows, int(row0), int(frame0), spp, ray_depth,
+                int(jitter == "center"), int(bool(rr)), *outs, stream)
+        else:
+            entry = "tpt_trace_progressive"
+            err = lib.tpt_trace_progressive(
+                scene.sphere_pos_radius.data_ptr(), scene.sphere_material.data_ptr(),
+                scene.cuboid_min.data_ptr(), scene.cuboid_max.data_ptr(),
+                scene.cuboid_material.data_ptr(), ns, nc, cam.data_ptr(),
+                width, height, n_rows, int(row0), int(frame0), n_frames, n_valid, spp,
+                ray_depth, int(jitter == "center"), int(bool(rr)), *outs, stream)
     if err != 0:
-        raise RuntimeError(f"tpt_trace_progressive launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES += 1
+    ONEHOT_LAUNCHES += int(gather == "onehot")
     return ProgressiveTraceResult(rad_sum=rad_sum, miss_dir=miss_dir, miss_thr=miss_thr,
                                   ray_count=ray_count, seed=seed)
 
@@ -182,13 +223,18 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
 def trace(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
           *, width: int, height: int, ray_depth: int, spp: int,
           counts: Tuple[int, int] | None = None, n_rows: int | None = None,
-          row0: int = 0, jitter: str = "corner", rr: bool = True) -> TraceResult:
-    """Trace one frame (counterpart of pallas_trace, ``gather="select"``).
+          row0: int = 0, jitter: str = "corner", rr: bool = True,
+          gather: str = "select") -> TraceResult:
+    """Trace one frame (counterpart of pallas_trace, either gather).
 
-    Returns radiance f32[3, n_rows, width] summed over spp, miss_dir /
-    miss_thr f32[spp, 3, n_rows, width], ray_count i32 and seed i64."""
+    ``gather="onehot"`` needs ``counts`` (static counts in the TPU wrapper)
+    and reads the winners from build_attr_table(scene, counts); its results
+    are those of ``gather="select"``, bit for bit.  Returns radiance
+    f32[3, n_rows, width] summed over spp, miss_dir / miss_thr
+    f32[spp, 3, n_rows, width], ray_count i32 and seed i64."""
+    _check_gather(gather, counts)
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
-                  counts=counts, row0=row0, jitter=jitter, rr=rr)
+                  counts=counts, row0=row0, jitter=jitter, rr=rr, gather=gather)
     if scene.device.type == "cpu":
         return trace_plain(scene, inv_proj, inv_view, frame, focal_length,
                            aperture_diameter, n_rows=n_rows, **kwargs)
