@@ -15,7 +15,13 @@ drives the port's two paths through their entry points:
     its plain version;
   * the backward-design probes through ``tpt_torch.bwd_probes``, then each
     probe's kernel against its plain version and one PyTorch call for the
-    same function, at the harness's GRID = 100 and at a 1080p-sized 1013.
+    same function, at the harness's GRID = 100 and at a 1080p-sized 1013:
+    a call's time (CUDA events), its host time (the host clock around 200
+    calls with no synchronise inside), the kernel's device time and the
+    device operations a call makes (torch.profiler; exactly one, the
+    kernel, or the script fails), and the kernel's device time with a cold
+    L2 (the calls rotate through input copies four times the L2), the one
+    to hold against the bound.
 
 Every phase prints one line; any failure raises and the script exits
 non-zero without printing a result.
@@ -25,7 +31,8 @@ non-zero without printing a result.
 The second-to-last line is a JSON object with each kernel's launch count
 on the paths, its error against the plain version, its time against the
 plain version's and one PyTorch call's, and its bound (the least time an
-H100 SXM could take for the same work); the last line is
+H100 SXM could take for the same work), and for the probe kernels the host
+time a call; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -461,7 +468,9 @@ def probe_bound(name: str, n: int, rows: int, cols: int):
     """Bound of one probe call on n elements (see probes.cu): a gather reads
     idx and the table and writes n floats; a scatter reads idx and g (p5
     only its last tile) and writes its table; p2 and p4 read x (= g) and
-    write n floats."""
+    write n floats.  The bytes move at the HBM rate, so the kernel time to
+    hold against it is the cold-L2 one (:func:`cold_device_ms`): a warm L2
+    serves them faster than the bound."""
     from tpt_torch.kernels import probes as P
     table_bytes = P.R * P.K * 4
     if name in ("p1", "p3"):
@@ -513,29 +522,85 @@ def check_probe(name: str, got, want) -> float:
     return err
 
 
-def device_ms(fn, kernel: str, reps: int = 10):
-    """Mean device time per call of ``fn`` in the CUDA kernels whose name
-    holds ``kernel``, from torch.profiler (the wrapper's host time left
-    out); None when the profiler saw no such kernel."""
+def profiled(run, kernel: str, calls: int):
+    """torch.profiler around ``run()``, which makes ``calls`` calls: (every
+    device operation, those whose name holds ``kernel``).  The profiler now
+    and then hands back a trace with device events missing, so a trace
+    with fewer than ``calls`` such kernels is taken again, up to three
+    times in all."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in ops if kernel in e.name]
+        if len(mine) >= calls:
+            break
+    return ops, mine
+
+
+def mean_ms(events):
+    """The mean device ms of ``events``, None when there are none."""
+    return sum(e.device_time_total for e in events) / len(events) / 1e3 if events else None
+
+
+def device_profile(fn, kernel: str, reps: int = 10):
+    """``fn``'s work on the device by torch.profiler, over ``reps`` calls
+    after one warm-up call: (mean device ms of the CUDA kernels whose name
+    holds ``kernel``, None when the profiler saw none; device operations
+    per call, kernels, memsets and copies alike; their names)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us else None
+
+    ops, mine = profiled(run, kernel, reps)
+    return mean_ms(mine), len(ops) / reps, sorted({e.name for e in ops})
 
 
-def probe_phases(dev, card):
-    """The probes' path through ``tpt_torch.bwd_probes`` (every probe must
-    launch its kernel), then each probe's kernel against its plain version
-    and its library call at GRID 100 and 1013, with the kernel's own device
-    time beside the call's.  Returns the kernels-line
-    entries of the three probe kernels: launches from the path, the other
-    numbers those of each kernel's first probe at GRID 100, and every
-    probe's numbers under "probes"."""
+L2_BYTES = 50 << 20   # the H100's L2
+
+
+def cold_device_ms(fn, inputs, kernel: str):
+    """``fn``'s kernel time when its bytes come from and go to HBM, as the
+    bound assumes: torch.profiler over calls that rotate through copies of
+    ``inputs`` and keep each output until its copy comes round again, so
+    what one call reads and writes is four times the L2 away from its next
+    use, and on average each call writes back one output.  The mean device
+    ms of the CUDA kernels whose name holds ``kernel`` over one round after
+    a warm round, None when the profiler saw none."""
+    per_copy = sum(t.numel() * t.element_size() for t in inputs)
+    copies = [tuple(t.clone() for t in inputs) for _ in range(-(-4 * L2_BYTES // per_copy))]
+    outs = [fn(*c) for c in copies]
+    torch.cuda.synchronize()
+
+    def run():
+        for i, c in enumerate(copies):
+            outs[i] = fn(*c)
+
+    return mean_ms(profiled(run, kernel, len(copies))[1])
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time per call of ``fn``: time.perf_counter around ``reps``
+    calls with no synchronise inside (the device drained before and
+    after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def probe_path():
+    """The probes' path through ``tpt_torch.bwd_probes``, every count set
+    to 0 first: each probe must launch its kernel.  Returns the launches."""
     from tpt_torch import bwd_probes
     from tpt_torch.kernels import probes as P
 
@@ -547,8 +612,24 @@ def probe_phases(dev, card):
     if rc != 0 or not all(launches.values()):
         raise AssertionError(f"bwd_probes: rc {rc}, launches {launches}")
     phase("probes", f"python -m tpt_torch.bwd_probes: rc {rc}, kernel launches {launches}")
+    return launches
+
+
+def probe_timings(dev, card):
+    """Each probe's kernel against its plain version at GRID 100 and 1013,
+    and its times: a call (CUDA events), the host's share of a call
+    (:func:`host_ms`), the kernel's own device time and the device
+    operations a call makes (torch.profiler), the kernel's time with its
+    bytes from and to HBM (:func:`cold_device_ms`), the plain
+    version's and the library call's times, and the bound.  For the
+    scatter it also reports whether a second call gave the same bits: the
+    order of a warp's colliding shared-memory atomics is the hardware's, so
+    that is an observation, not a bar.  Returns {probe: {grid: record}}."""
+    from tpt_torch import bwd_probes
+    from tpt_torch.kernels import probes as P
 
     per = {name: {} for name in P.PROBES}
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"
     for grid in PROBE_GRIDS:
         inputs = bwd_probes.make_inputs(grid, dev)
         n = inputs[2].numel()
@@ -561,18 +642,52 @@ def probe_phases(dev, card):
             err = check_probe(name, got, want)
             rows, cols = P.output_shape(name, inputs[2].shape[0])
             b_ms, b_by = probe_bound(name, n, rows, cols)
-            rec = {"max_abs_err": err, "ms": cuda_ms(lambda: fn(*inputs), reps),
+            call = lambda: fn(*inputs)
+            dev_ms, ops, op_names = device_profile(call, P.KERNEL_OF[name])
+            cold_ms = cold_device_ms(fn, inputs, P.KERNEL_OF[name])
+            rec = {"max_abs_err": err, "ms": cuda_ms(call, reps), "host_ms": host_ms(call),
+                   "device_ms": dev_ms, "device_cold_ms": cold_ms,
+                   "device_ops_per_call": ops, "device_ops": op_names,
                    "plain_ms": cuda_ms(lambda: plain(*inputs), 5),
                    "library_ms": (cuda_ms(library[name], reps) if library[name] else None),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "device_ms": device_ms(lambda: fn(*inputs), P.KERNEL_OF[name])}
+                   "library_host_ms": (host_ms(library[name]) if library[name] else None),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            repeat = ""
+            if name in P.SCATTER:
+                again = fn(*inputs)
+                rec["repeat_bit_equal"] = torch.equal(again.view(torch.int32),
+                                                      got.view(torch.int32))
+                repeat = f"; a second call bit-equal: {rec['repeat_bit_equal']}"
             per[name][grid] = rec
-            us = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"
+            share = ("not measured" if cold_ms is None else f"{b_ms / cold_ms:.0%} of the bound")
             phase("probes", f"{name} ({P.KERNEL_OF[name]}) GRID {grid}, {n} elements: max abs "
-                  f"err {err:.3g}; kernel {us(rec['ms'])} a call ({us(rec['device_ms'])} of it "
-                  f"in the kernel, by torch.profiler), plain {us(rec['plain_ms'])}, library "
-                  f"{'none' if rec['library_ms'] is None else us(rec['library_ms'])}, bound "
+                  f"err {err:.3g}{repeat}; kernel {us(rec['ms'])} a call, {us(rec['host_ms'])} "
+                  f"of host time a call, {us(dev_ms)} in the kernel ({ops:g} device operations "
+                  f"a call, by torch.profiler: {', '.join(op_names)}), {us(cold_ms)} with a "
+                  f"cold L2 ({share}), plain {us(rec['plain_ms'])}, "
+                  f"library {'none' if rec['library_ms'] is None else us(rec['library_ms'])} a "
+                  f"call, {us(rec['library_host_ms'])} of host time; bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}) ({card})")
+    return per
+
+
+def probe_phases(dev, card):
+    """The probes' path (:func:`probe_path`), then :func:`probe_timings`;
+    every probe call must make exactly one device operation, its kernel
+    (no memset, no copy).  Returns the kernels-line entries of the three
+    probe kernels: launches from the path, the other numbers those of each
+    kernel's first probe at GRID 100, and every probe's numbers under
+    "probes"."""
+    from tpt_torch.kernels import probes as P
+
+    launches = probe_path()
+    per = probe_timings(dev, card)
+    extra = {f"{name} GRID {grid}": rec["device_ops"] for name in P.PROBES
+             for grid, rec in per[name].items() if rec["device_ops_per_call"] != 1
+             or not all(P.KERNEL_OF[name] in op for op in rec["device_ops"])}
+    if extra:
+        raise AssertionError(f"probe calls that make other device operations than their one "
+                             f"kernel: {extra}")
 
     entries = []
     for kernel in ("probe_gather_kernel", "probe_scatter_kernel", "probe_elementwise_kernel"):
@@ -585,6 +700,7 @@ def probe_phases(dev, card):
             "max_abs_err": max(r["max_abs_err"] for n in names for r in per[n].values()),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "host_ms": first["host_ms"],
             "at": f"{names[0]}, GRID {PROBE_GRIDS[0]}",
             "probes": {n: {str(g): r for g, r in per[n].items()} for n in names}})
     return entries

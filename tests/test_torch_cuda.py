@@ -231,29 +231,110 @@ def test_onehot_kernel_matches_select_and_plain(device, spp, rr, jitter):
                                          **kw))
 
 
-def test_probe_kernels_match_plain(device):
+def assert_probe_close(name, got, want):
+    """The bars of tests/test_torch_probes.py: p1, p2, p3 and p6's columns
+    1-31 exact; the sums at rtol 1e-5, atol 1e-5 x the largest magnitude;
+    p4 at rtol 1e-5, atol 1e-6."""
+    if name in ("p1", "p2", "p3"):
+        assert torch.equal(got, want), name
+    elif name == "p4":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=name)
+    elif name == "p6":
+        assert torch.equal(got[:, 1:], want[:, 1:]), name
+        torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5,
+                                   atol=1e-5 * float(want[:, 0].abs().max()), msg=name)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("grid", [100, 1013])
+def test_probe_kernels_match_plain(device, grid):
     """Each probe's kernel against its plain version, under the bars of
-    tests/test_torch_probes.py, at the harness's GRID = 100."""
+    tests/test_torch_probes.py, at the harness's GRID = 100 and at 1013
+    (one element per 1080p pixel)."""
     from tpt_torch.bwd_probes import make_inputs
     from tpt_torch.kernels import probes as P
-    inputs = make_inputs(100, device)
+    inputs = make_inputs(grid, device)
     for name in P.PROBES:
         launches = P.PROBE_LAUNCHES[name]
         got = getattr(P, name)(*inputs)
         torch.cuda.synchronize()
         assert P.PROBE_LAUNCHES[name] == launches + 1, name
+        assert_probe_close(name, got, getattr(P, f"{name}_plain")(*inputs))
+
+
+SCATTER_PROBES = ("p1t", "p5", "p6", "p7", "p8")
+
+
+def test_scatter_back_to_back_resets_its_counter(device):
+    """50 calls in a row on one stream, each within its bar: the last block
+    of every launch leaves the workspace's counter at 0 for the next."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    inputs = make_inputs(100, device)
+    want = {name: getattr(P, f"{name}_plain")(*inputs) for name in SCATTER_PROBES}
+    outs = [(name, getattr(P, name)(*inputs)) for _ in range(10) for name in SCATTER_PROBES]
+    torch.cuda.synchronize()
+    for name, got in outs:
+        assert_probe_close(name, got, want[name])
+
+
+def test_scatter_on_two_streams(device):
+    """Calls on the default stream and on a side stream, interleaved, each
+    with its own workspace; every call within the bar."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    inputs = make_inputs(1013, device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    outs = []
+    for _ in range(4):
+        outs.append(P.p1t(*inputs))
+        with torch.cuda.stream(side):
+            outs.append(P.p1t(*inputs))
+    torch.cuda.synchronize()
+    want = P.p1t_plain(*inputs)
+    assert len(P._WORKSPACES) >= 2
+    for got in outs:
+        assert_probe_close("p1t", got, want)
+
+
+@pytest.mark.parametrize("grid", [100, 1013])
+def test_scatter_repeats_its_counts_exactly(device, grid):
+    """Two calls of each scatter probe, each within its bar; p6's counts
+    (u32 atomics) equal the plain version's and each other's.  The sums'
+    last bits are not held equal: the merge runs in block order, but CUDA
+    does not fix the order of a warp's colliding shared-memory atomics
+    (chip_smoke.py reports whether two calls gave the same bits)."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    inputs = make_inputs(grid, device)
+    for name in SCATTER_PROBES:
         want = getattr(P, f"{name}_plain")(*inputs)
-        if name in ("p1", "p2", "p3"):
-            assert torch.equal(got, want), name
-        elif name == "p4":
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=name)
-        elif name == "p6":
-            assert torch.equal(got[:, 1:], want[:, 1:]), name
-            torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-5,
-                                       atol=1e-5 * float(want[:, 0].abs().max()), msg=name)
-        else:
-            torch.testing.assert_close(got, want, rtol=1e-5,
-                                       atol=1e-5 * float(want.abs().max()), msg=name)
+        a, b = getattr(P, name)(*inputs), getattr(P, name)(*inputs)
+        assert_probe_close(name, a, want)
+        assert_probe_close(name, b, want)
+        if name == "p6":
+            assert torch.equal(a[:, 1], b[:, 1]) and torch.equal(a[:, 1], want[:, 1])
+
+
+def test_scatter_layout_comes_from_the_source(device):
+    """The workspace's size and ColWeights' size are csrc/probes.cu's: the
+    workspace holds a 2 x 128-word partial for each block of the grid (one
+    block per SM) and the counter, and the ctypes ColWeights has the C
+    struct's size."""
+    import ctypes
+    from tpt_torch.kernels import _build
+    from tpt_torch.kernels import probes as P
+    words, weights_bytes = ctypes.c_int64(), ctypes.c_int64()
+    assert _build.load_library().tpt_probe_scatter_layout(ctypes.byref(words),
+                                                          ctypes.byref(weights_bytes)) == 0
+    assert weights_bytes.value == ctypes.sizeof(_build.ColWeights) == 2 * 4 * _build.MAX_COLS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert (words.value - 1) % (2 * P.R) == 0 and words.value > 2 * P.R * sms
+    work = P._workspace(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    assert work.numel() == words.value and int(work[-1]) == 0
 
 
 def test_probe_wrappers_reject_bad_inputs(device):
@@ -264,6 +345,31 @@ def test_probe_wrappers_reject_bad_inputs(device):
         P.p1(idx.long(), table, g)
     with pytest.raises(ValueError, match="table"):
         P.p1t(idx, table.cpu(), g)
+
+
+def test_probe_wrappers_reject_misaligned_inputs(device):
+    """A contiguous input 4 bytes off a 16-byte boundary (a flat view
+    offset by one element) raises before the 16-byte loads, never faults."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    idx, table, g = make_inputs(2, device)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    launches = dict(P.PROBE_LAUNCHES)
+    for name in ("p2", "p4") + SCATTER_PROBES:
+        with pytest.raises(ValueError, match="16-byte"):
+            getattr(P, name)(idx, table, shifted(g))
+    for name in SCATTER_PROBES:
+        with pytest.raises(ValueError, match="16-byte"):
+            getattr(P, name)(shifted(idx), table, g)
+    torch.cuda.synchronize()
+    assert P.PROBE_LAUNCHES == launches
 
 
 def test_bwd_probes_main_launches_every_probe(device, capsys):

@@ -12,7 +12,7 @@ Bars and why:
   p6's columns 2-31 are exactly 0;
 * sums (p1t, p5, p6's column 0, p7, p8) at rtol 1e-5 and atol 1e-5 x the
   output's largest magnitude: the sum is taken in another order (on the
-  card, by atomics in no fixed order);
+  card, by per-warp shared-memory atomics and a merge in block order);
 * p4 at rtol 1e-5, atol 1e-6: libm's tanh and exp differ by an ulp.
 """
 
@@ -85,6 +85,40 @@ def test_probe_matches_pallas(harness, monkeypatch, name):
         assert_sum_close(got, want)
 
 
+@pytest.mark.parametrize("name", sorted(P.SCATTER))
+def test_scatter_launch_args_match_the_harness(harness, monkeypatch, name):
+    """The launch arguments of each scatter probe, built without a card,
+    equal SCATTER's and the harness's: column weights a, c, the window
+    (first, n), rows and cols.  The harness's probe runs in interpret mode
+    at GRID = 2 with idx = each element's tile number, once with g = 1 and
+    once with g = 2; tile t's row of d is then (a_k + c_k) n_t and
+    (2 a_k + c_k) n_t, n_t = 2048 inside the window and 0 outside."""
+    grid, tile = 2, P.TR * P.L
+    n = grid * tile
+    weights, first, n_args, rows, cols = P.scatter_args(name, n)
+    s_rows, s_cols, a, c, last_tile = P.SCATTER[name]
+    assert (rows, cols, first, n_args) == (s_rows, s_cols, n - tile if last_tile else 0, n)
+    pad = [0.0] * (P.K - cols)
+    assert list(weights.a) == list(a) + pad and list(weights.c) == list(c) + pad
+
+    monkeypatch.setattr(harness, "idx", np.repeat(np.arange(grid, dtype=np.int32),
+                                                  tile).reshape(grid * P.TR, P.L))
+    monkeypatch.setattr(harness, "table", np.zeros((P.R, P.K), np.float32))
+    monkeypatch.setattr(harness, "GRID", grid)
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    d = []
+    for gv in (1.0, 2.0):
+        monkeypatch.setattr(harness, "gvals", np.full((grid * P.TR, P.L), gv, np.float32))
+        d.append(np.asarray(getattr(harness, name)()(), dtype=np.float64))
+    assert d[0].shape == (rows, cols)
+    for t in range(grid):
+        inside = t * tile >= first
+        np.testing.assert_array_equal((d[1][t] - d[0][t]) / tile, weights.a[:cols] if inside else 0)
+        np.testing.assert_array_equal((2 * d[0][t] - d[1][t]) / tile,
+                                      weights.c[:cols] if inside else 0)
+    assert not d[0][grid:].any() and not d[1][grid:].any()
+
+
 def test_bwd_probes_main_on_the_cpu(capsys):
     assert bwd_probes.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
@@ -111,12 +145,28 @@ def test_no_fallback_off_the_cpu():
 
 
 def test_probes_path_imports_no_jax():
-    """The probes' entry point, run on the CPU, and chip_smoke.py import
-    nothing of JAX, the JAX package, benchmarks/ or optax."""
+    """The probes' entry point, run on the CPU, chip_smoke.py,
+    probe_turns.py and scatter_designs.py import nothing of JAX, the JAX
+    package, benchmarks/ or optax."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys; import chip_smoke; from tpt_torch import bwd_probes; "
+    code = ("import sys; import chip_smoke, probe_turns, scatter_designs; "
+            "from tpt_torch import bwd_probes; "
             "assert bwd_probes.main(['p1', 'p6', '--device', 'cpu']) == 0; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpt', 'benchmarks', 'optax', 'exp_bwd_probes')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=repo, check=True, timeout=120,
                    stdout=subprocess.DEVNULL)
+
+
+def test_probe_turns_refuses_a_checkout_without_the_port(tmp_path):
+    """probe_turns.py compares two checkouts of the port; a directory that
+    holds no tpt_torch/ is refused before any turn runs."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import probe_turns
+    finally:
+        sys.path.remove(repo)
+    with pytest.raises(SystemExit) as exc:
+        probe_turns.main([str(tmp_path)])
+    assert exc.value.code == 2

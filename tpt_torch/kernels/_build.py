@@ -31,6 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+MAX_COLS = 32   # csrc/probes.cu kMaxCols
+
+
+class ColWeights(ctypes.Structure):
+    """The scatter probes' column weights a, c (csrc/probes.cu ColWeights,
+    whose size ``tpt_probe_scatter_layout`` gives to check this one);
+    ``tpt_probe_scatter`` takes its address and copies it into the launch."""
+    _fields_ = [("a", ctypes.c_float * MAX_COLS), ("c", ctypes.c_float * MAX_COLS)]
+
+
 # entry point -> (source file, argument types); every entry returns a CUDA error code
 ENTRY_POINTS = {
     # 5 scene pointers, 2 counts, the host camera pointer, 11 ints,
@@ -44,10 +54,13 @@ ENTRY_POINTS = {
     "tpt_trace_grad": ("trace_grad.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
     # idx, table, cols, col, n, out, the stream
     "tpt_probe_gather": ("probes.cu", [_P, _P, _I, _I, _L, _P, _P]),
-    # idx, g, first, n, the host column weights a and c, rows, cols,
-    # scratch, d, the stream
-    "tpt_probe_scatter": ("probes.cu", [_P, _P, _L, _L, _P, _P, _I, _I, _P, _P, _P]),
-    # x, g, n, mode, out, the stream
+    # idx, g (16-byte aligned), the window first, n (multiples of 4), the
+    # host ColWeights, rows, cols, the (device, stream)'s workspace (no
+    # zeroing per call), d, the stream
+    "tpt_probe_scatter": ("probes.cu", [_P, _P, _L, _L, _P, _I, _I, _P, _P, _P]),
+    # out: the workspace's 32-bit words, the bytes of a ColWeights (no launch)
+    "tpt_probe_scatter_layout": ("probes.cu", [_P, _P]),
+    # x, g, n (a multiple of 4), mode, out (all 16-byte aligned), the stream
     "tpt_probe_elementwise": ("probes.cu", [_P, _P, _L, _I, _P, _P]),
 }
 

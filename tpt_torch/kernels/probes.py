@@ -16,14 +16,20 @@ Every wrapper takes ``(idx, table, g)``: idx i32[N, 128] in [0, 55), table
 f32[128, 32], g f32[N, 128] (the harness passes g as x too), and returns
 the probe's output (:func:`output_shape`).  For CPU tensors it runs its
 plain version (``<name>_plain``); for CUDA tensors it launches its kernel
-or raises.  ``PROBE_LAUNCHES[name]`` counts each probe's kernel launches.
+or raises (ValueError for inputs the kernel does not take, among them a g,
+or for the scatter an idx, that does not start on a 16-byte boundary: the
+scatter and elementwise kernels load 16 bytes at a time).
+``PROBE_LAUNCHES[name]`` counts each probe's kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from . import _build
 
 TR, L, R, K = 16, 128, 128, 32   # the harness's tile rows, lanes, table rows, columns
 P5_ROWS, P5_COLS = 55, 4
@@ -108,25 +114,89 @@ p7_plain = p8_plain = p1t_plain
 
 
 # ---- kernel launches ----
+#
+# The launch path is lean because a probe's kernel takes a few
+# microseconds: one pass of checks over the inputs (an error message is
+# built only when one fails), a device guard only when g's device is not
+# the current one, the raw stream handle, one output allocation and one
+# ctypes call.  The scatter's column weights are built once per probe and
+# its workspace once per (device, stream).
 
-def _check(name, idx, table, g):
-    device = g.device
-    if device.type != "cuda":
-        raise ValueError(f"probe {name} runs its kernel on CUDA tensors, got {device}")
-    n_rows = g.shape[0] if g.dim() == 2 else -1
-    for what, t, dtype, shape in (("idx", idx, torch.int32, (n_rows, L)),
-                                  ("table", table, torch.float32, (R, K)),
-                                  ("g", g, torch.float32, (n_rows, L))):
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{what} must be a contiguous {dtype}{list(shape)} on {device}, "
-                             f"got {t.dtype}{list(t.shape)} on {t.device}")
-    if n_rows < TR:
-        raise ValueError(f"need at least one {TR} x {L} tile, got {list(g.shape)}")
+_F32, _I32, _TABLE = torch.float32, torch.int32, (R, K)
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+def _col_weights(a, c) -> _build.ColWeights:
+    w = _build.ColWeights()
+    w.a[:len(a)], w.c[:len(c)] = a, c
+    return w
+
+
+_WEIGHTS = {name: _col_weights(a, c) for name, (_, _, a, c, _) in SCATTER.items()}
+_WEIGHT_ADDRESSES = {name: ctypes.addressof(w) for name, w in _WEIGHTS.items()}
+
+
+def scatter_args(name: str, n: int):
+    """The launch arguments of scatter probe ``name`` on ``n`` elements:
+    (its ColWeights, built once, window first, n, rows, cols)."""
+    rows, cols, _, _, last_tile = SCATTER[name]
+    return _WEIGHTS[name], (n - TR * L if last_tile else 0), n, rows, cols
+
+
+# (device index, raw stream) -> the scatter's workspace, of the size
+# csrc/probes.cu gives (the partials and the last-block counter), zeroed
+# once here; the kernel leaves the counter at 0, so the next launch on the
+# stream needs no memset.  Kept for the life of the process, like the stream.
+_WORKSPACES: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(dev: int, stream: int) -> torch.Tensor:
+    work = _WORKSPACES.get((dev, stream))
+    if work is None:
+        words, weights_bytes = ctypes.c_int64(), ctypes.c_int64()
+        _build.load_library().tpt_probe_scatter_layout(ctypes.byref(words),
+                                                       ctypes.byref(weights_bytes))
+        if weights_bytes.value != ctypes.sizeof(_build.ColWeights):
+            raise RuntimeError(f"csrc/probes.cu's ColWeights has {weights_bytes.value} bytes, "
+                               f"_build.ColWeights {ctypes.sizeof(_build.ColWeights)}")
+        work = torch.zeros(words.value, dtype=torch.int32, device=torch.device("cuda", dev))
+        _WORKSPACES[(dev, stream)] = work
+    return work
+
+
+def _refused(what, t, dtype, shape, dev) -> ValueError:
+    return ValueError(f"{what} must be a contiguous {dtype}{list(shape)} on cuda:{dev}, got "
+                      f"{'a' if t.is_contiguous() else 'a strided'} {t.dtype}{list(t.shape)} "
+                      f"on {t.device}")
+
+
+def _ready(name, idx, table, g) -> int:
+    """g's device index, once the three inputs pass the kernels' checks;
+    raises ValueError naming the first check that fails.  Each check is
+    written once, beside the error that words it."""
+    if not g.is_cuda:
+        raise ValueError(f"probe {name} runs its kernel on CUDA tensors, got {g.device}")
+    dev, shape = g.get_device(), g.shape
+    if len(shape) != 2 or shape[0] < TR or shape[1] != L:
+        raise ValueError(f"g must be [N, {L}] with N >= {TR} (one {TR} x {L} tile or more), "
+                         f"got {list(shape)}")
+    if not (g.dtype == _F32 and g.is_contiguous()):
+        raise _refused("g", g, _F32, shape, dev)
+    if not (idx.dtype == _I32 and idx.shape == shape and idx.get_device() == dev
+            and idx.is_contiguous()):
+        raise _refused("idx", idx, _I32, shape, dev)
+    if not (table.dtype == _F32 and table.shape == _TABLE and table.get_device() == dev
+            and table.is_contiguous()):
+        raise _refused("table", table, _F32, _TABLE, dev)
+    return dev
+
+
+def _aligned(name, **ptrs):
+    """The 16-byte loads of the scatter and elementwise kernels need each
+    input to start on a 16-byte boundary."""
+    for what, ptr in ptrs.items():
+        if ptr % 16:
+            raise ValueError(f"probe {name}: {what} must start on a 16-byte boundary for the "
+                             f"kernel's 16-byte loads, got address {ptr:#x}")
 
 
 def _launched(name: str, entry: str, err: int):
@@ -135,45 +205,35 @@ def _launched(name: str, entry: str, err: int):
     PROBE_LAUNCHES[name] += 1
 
 
-def _gather(name, idx, table, g):
-    from ._build import load_library
-    _check(name, idx, table, g)
+def _gather(name, idx, table, g, stream):
     out = torch.empty_like(g)
-    lib = load_library()
-    with torch.cuda.device(g.device):
-        err = lib.tpt_probe_gather(idx.data_ptr(), table.data_ptr(), K, 0, g.numel(),
-                                   out.data_ptr(), _stream(g.device))
+    err = _build.load_library().tpt_probe_gather(idx.data_ptr(), table.data_ptr(), K, 0,
+                                                 g.numel(), out.data_ptr(), stream)
     _launched(name, "tpt_probe_gather", err)
     return out
 
 
-def _scatter(name, idx, table, g):
-    from ._build import load_library
-    _check(name, idx, table, g)
-    rows, cols, a, c, last_tile = SCATTER[name]
-    n = g.numel()
-    first = n - TR * L if last_tile else 0
-    a_host = torch.tensor(a, dtype=torch.float32)
-    c_host = torch.tensor(c, dtype=torch.float32)
-    scratch = torch.zeros(2 * R + 1, dtype=torch.float32, device=g.device)
-    d = torch.empty((rows, cols), dtype=torch.float32, device=g.device)
-    lib = load_library()
-    with torch.cuda.device(g.device):
-        err = lib.tpt_probe_scatter(idx.data_ptr(), g.data_ptr(), first, n, a_host.data_ptr(),
-                                    c_host.data_ptr(), rows, cols, scratch.data_ptr(),
-                                    d.data_ptr(), _stream(g.device))
+def _scatter(name, idx, table, g, stream):
+    pi, pg = idx.data_ptr(), g.data_ptr()
+    if (pi | pg) % 16:
+        _aligned(name, idx=pi, g=pg)
+    _, first, n, rows, cols = scatter_args(name, g.numel())
+    work = _workspace(g.get_device(), stream)
+    d = g.new_empty((rows, cols))
+    err = _build.load_library().tpt_probe_scatter(pi, pg, first, n, _WEIGHT_ADDRESSES[name],
+                                                  rows, cols, work.data_ptr(), d.data_ptr(),
+                                                  stream)
     _launched(name, "tpt_probe_scatter", err)
     return d
 
 
-def _elementwise(name, idx, table, g):
-    from ._build import load_library
-    _check(name, idx, table, g)
+def _elementwise(name, idx, table, g, stream):
+    x = g.data_ptr()
+    if x % 16:
+        _aligned(name, g=x)
     out = torch.empty_like(g)
-    lib = load_library()
-    with torch.cuda.device(g.device):
-        err = lib.tpt_probe_elementwise(g.data_ptr(), g.data_ptr(), g.numel(),
-                                        int(name == "p4"), out.data_ptr(), _stream(g.device))
+    err = _build.load_library().tpt_probe_elementwise(x, x, g.numel(), int(name == "p4"),
+                                                      out.data_ptr(), stream)
     _launched(name, "tpt_probe_elementwise", err)
     return out
 
@@ -183,10 +243,18 @@ _LAUNCH = {"probe_gather_kernel": _gather, "probe_scatter_kernel": _scatter,
 
 
 def _probe(name: str) -> Callable:
+    launch = _LAUNCH[KERNEL_OF[name]]
+
     def wrapper(idx, table, g):
-        if g.device.type == "cpu":
+        if g.is_cpu:
             return globals()[f"{name}_plain"](idx, table, g)
-        return _LAUNCH[KERNEL_OF[name]](name, idx, table, g)
+        dev = _ready(name, idx, table, g)
+        # torch's own device and stream getters, without the Python layers
+        # of torch.cuda.current_device() and current_stream()
+        if dev != torch._C._cuda_getDevice():
+            with torch.cuda.device(dev):
+                return wrapper(idx, table, g)
+        return launch(name, idx, table, g, torch._C._cuda_getCurrentRawStream(dev))
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = (f"Probe {name} of benchmarks/exp_bwd_probes.py: {KERNEL_OF[name]} on "
