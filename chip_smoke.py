@@ -10,6 +10,11 @@ drives the port's two paths through their entry points:
   * the training path: ``tpt_torch.inverse_demo`` (512x512, ray depth 8,
     two views, fixed-depth transport, clipped Adam, 200 steps), then 20
     timed steps of the 1080p training step of benchmarks/train_bench.py;
+    then the backward's two kernels (the tape kernel and the adjoint
+    kernel) against the plain backward at five shapes and in the four row
+    bands of the 1080p frame, the tape's live-bounce counts against the
+    forward kernel's ray counts, each kernel's time, occupancy and ptxas
+    report;
   * the one-hot gather: ``trace(..., gather="onehot")`` at the four
     one-frame shapes, bit for bit against the select kernel and against
     its plain version;
@@ -17,11 +22,11 @@ drives the port's two paths through their entry points:
     probe's kernel against its plain version and one PyTorch call for the
     same function, at the harness's GRID = 100 and at a 1080p-sized 1013:
     a call's time (CUDA events), its host time (the host clock around 200
-    calls with no synchronise inside), the kernel's device time and the
-    device operations a call makes (torch.profiler; exactly one, the
-    kernel, or the script fails), and the kernel's device time with a cold
-    L2 (the calls rotate through input copies four times the L2), the one
-    to hold against the bound.
+    calls with no synchronise inside), the kernel's device time
+    (torch.profiler), the device operations a call makes (a stream capture
+    of one call; exactly one, the kernel, or the script fails), and the
+    kernel's device time with a cold L2 (the calls rotate through input
+    copies four times the L2), the one to hold against the bound.
 
 Every phase prints one line; any failure raises and the script exits
 non-zero without printing a result.
@@ -38,6 +43,7 @@ time a call; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -126,6 +132,51 @@ def grad_bound(segments: int, samples: int, pixels: int, spp: int, counts):
            + samples * (1 + ADJOINT) * OPS_CAMERA)
     nbytes = 4 * (4 * ns + 6 * nc) + 2 * 4 * (128 * 24 + 20) + pixels * 4 * (3 + 6 * spp)
     return bound(ops, nbytes)
+
+
+def grad_kernel_bounds(segments: int, samples: int, pixels: int, spp: int, counts):
+    """:func:`grad_bound`'s work split between the two backward kernels:
+    the tape kernel's forward sweep (fold, bounce, camera ray; it reads the
+    geometry, the table and the camera), and the adjoint kernel's replay
+    and adjoint of each bounce and the camera adjoint (it reads the table,
+    the camera and the cotangents and writes d_table and d_cam).  The tape
+    between them is the implementation's, not the function's, and is not
+    counted.  {"tape": (ms, by), "adjoint": (ms, by)}."""
+    ns, nc = counts
+    table_cam = 4 * (128 * 24 + 20)
+    return {"tape": bound(segments * (OPS_SPHERE * ns + OPS_CUBOID * nc + OPS_BOUNCE)
+                          + samples * OPS_CAMERA, 4 * (4 * ns + 6 * nc) + table_cam),
+            "adjoint": bound(segments * (1 + ADJOINT) * OPS_BOUNCE
+                             + samples * ADJOINT * OPS_CAMERA,
+                             2 * table_cam + pixels * 4 * (3 + 6 * spp))}
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: "R registers, S/L bytes spill stores/loads, F bytes stack"}
+    from nvcc's -Xptxas -v output, by entry function (templates by their
+    mangled arguments)."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            short = re.search(r"([a-z_]+_kernel)(I\w*?E)?", mangled)
+            name = short.group(1) + (f"<{short.group(2)[1:-1]}>" if short.group(2) else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["stack"], out[name]["stores"], out[name]["loads"] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = m.group(1)
+    return {k: (f"{v.get('registers', '?')} registers, {v.get('stores', '?')}/"
+                f"{v.get('loads', '?')} bytes spill stores/loads, {v.get('stack', '?')} bytes "
+                f"stack") for k, v in out.items()}
 
 
 def assert_bits_equal(got, want, what):
@@ -279,6 +330,18 @@ def grad_phases(dev, card, K, G):
         failed.extend(f"{what}, {b}" for b in bad)
         return fmt_grads(errs, floors), max(err for err, _ in errs.values())
 
+    def same_paths(c, frame, kw, what):
+        """The tape kernel's live-bounce counts, summed over the samples,
+        equal the forward kernel's ray counts: it took the same decisions."""
+        ip, iv, _ = camera_matrices(c, kw["width"], kw["height"])
+        cam20 = G.camera_vector(ip, iv, c.focal_length, c.aperture_diameter, device=dev)
+        rays = K.trace(scene, ip, iv, frame, c.focal_length, c.aperture_diameter, **kw).ray_count
+        tape = G._tape_counts(scene, table, cam20, frame, **kw).sum(0)
+        if not torch.equal(tape, rays.reshape(tape.shape)):
+            failed.append(f"{what}: tape counts differ from the forward kernel's ray counts at "
+                          f"{int((tape != rays.reshape(tape.shape)).sum())} pixels")
+        return rays
+
     max_err = 0.0
     cases = (("default", cam, 256, 256, DEPTH, 1, True, "corner"),) + frame_cases()[1:]
     for i, (view, c, w, h, depth, spp, rr, jitter) in enumerate(cases):
@@ -290,8 +353,9 @@ def grad_phases(dev, card, K, G):
         want = G.trace_grad_plain(scene, table, cam20, 3, *cots, **kw)
         summary, err = check(what, got, want)
         max_err = max(max_err, err)
-        line = (f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernel) / "
-                f"{int(want.n_zeroed)} (plain)")
+        same_paths(c, 3, kw, what)
+        line = (f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernels) / "
+                f"{int(want.n_zeroed)} (plain); tape counts == forward ray counts")
         if i == 0:
             half = G.trace_grad(scene, table, cam20, 3, *cots, half_stores=True, **kw)
             again = G.trace_grad(scene, table, cam20, 3, *cots, **kw)
@@ -318,17 +382,17 @@ def grad_phases(dev, card, K, G):
     got, want = run(), run_plain()
     summary, err = check(what, got, want)
     max_err = max(max_err, err)
-    times = {"ms": cuda_ms(run, 5), "plain_ms": cuda_ms(run_plain, 1, warm_up=False)}
     # the backward's forward sweep traces the segments of the forward frame
-    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
-    segments = int(K.trace(scene, ip, iv, 0, cam.focal_length, cam.aperture_diameter,
-                           **kw).ray_count.sum())
+    rays = same_paths(cam, 0, kw, what)
+    segments = int(rays.sum())
+    times = {"ms": cuda_ms(run, 5), "plain_ms": cuda_ms(run_plain, 1, warm_up=False)}
     times["bound_ms"], times["bound_by"] = grad_bound(segments, WIDTH * HEIGHT,
                                                       WIDTH * HEIGHT, 1, counts)
-    phase("grad", f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernel) / "
-          f"{int(want.n_zeroed)} (plain, {HEIGHT // band} bands); kernel {times['ms']:.2f} ms, "
-          f"plain {times['plain_ms']:.1f} ms, bound {times['bound_ms']:.4f} ms "
-          f"({times['bound_by']}, {segments} segments) ({card})")
+    phase("grad", f"{what}: {summary}; zeroed {int(got.n_zeroed)} (kernels) / "
+          f"{int(want.n_zeroed)} (plain, {HEIGHT // band} bands); tape counts == forward ray "
+          f"counts; both kernels {times['ms']:.2f} ms, plain {times['plain_ms']:.1f} ms, bound "
+          f"{times['bound_ms']:.4f} ms ({times['bound_by']}, {segments} segments; the tape's "
+          f"{G.tape_bytes(WIDTH, HEIGHT, 1, DEPTH) / 1e9:.3f} GB not counted) ({card})")
 
     # the same launch shape cut into its row bands, each launched and filtered
     # alone: a non-finite camera cotangent (one axis-parallel pixel zeroes all
@@ -354,45 +418,130 @@ def grad_phases(dev, card, K, G):
     split = {mode: cuda_ms(lambda: G.trace_grad(scene, table, cam20, 0, *cots, ablate=mode,
                                                 **kw), 3)
              for mode in G.ABLATE_MODES}
-    phase("grad-split", f"{WIDTH}x{HEIGHT} kernel ms by ablate mode: "
+    phase("grad-split", f"{WIDTH}x{HEIGHT} ms of both kernels by ablate mode: "
           + ", ".join(f"{m} {v:.2f}" for m, v in split.items())
           + f"; forward sweep and camera (norev) {split['norev']:.2f}, stores "
           f"{split['none'] - split['nostores']:.2f}, reverse sweep "
           f"{split['none'] - split['norev']:.2f}, camera adjoint "
           f"{split['none'] - split['nocam']:.2f}, table accumulation "
           f"{split['none'] - split['nodtbl']:.2f} ({card})")
+
+    # each kernel apart: its device time (torch.profiler; should the profiler
+    # lose every event, CUDA events around the tape kernel alone, and the
+    # pair's time less that for the adjoint), its blocks per SM (the
+    # occupancy API), its share of the plain version and of the bound
+    per = {k: {"ms": device_profile(run, f"trace_grad_{k}_kernel", reps=5), "by": "profiler"}
+           for k in ("tape", "adjoint")}
+    if None in (per["tape"]["ms"], per["adjoint"]["ms"]):
+        tape_ms = cuda_ms(lambda: G._tape_counts(scene, table, cam20, 0, **kw), 5)
+        per = {"tape": {"ms": tape_ms, "by": "CUDA events"},
+               "adjoint": {"ms": times["ms"] - tape_ms, "by": "CUDA events, pair less tape"}}
+    per_sm = grad_blocks_per_sm()
+    plain = plain_split_ms(G, scene, table, cam20, cots, kw, band)
+    bounds = grad_kernel_bounds(segments, WIDTH * HEIGHT, WIDTH * HEIGHT, 1, counts)
+    for kernel in per:
+        per[kernel].update(plain_ms=plain[kernel], bound_ms=bounds[kernel][0],
+                           bound_by=bounds[kernel][1], blocks_per_sm=per_sm[kernel])
+    effs = {}
+    for view, c, w, h, depth, spp, rr, jitter in frame_cases():
+        ip, iv, _ = camera_matrices(c, w, h)
+        effs[f"{w}x{h} {view}"] = G.lane_efficiency(
+            K.trace(scene, ip, iv, 0, c.focal_length, c.aperture_diameter, width=w, height=h,
+                    ray_depth=depth, spp=spp, rr=rr, jitter=jitter).ray_count)
+    tape_gb = G.tape_bytes(WIDTH, HEIGHT, 1, DEPTH) / 1e9
+    phase("grad-split", f"{WIDTH}x{HEIGHT}: tape kernel {per['tape']['ms']:.3f} ms by "
+          f"{per['tape']['by']} ({per_sm['tape']} blocks/SM; plain forward with its graph "
+          f"{plain['tape']:.1f} ms; bound {bounds['tape'][0]:.4f} ms, {bounds['tape'][1]}), "
+          f"adjoint kernel {per['adjoint']['ms']:.3f} ms by {per['adjoint']['by']} "
+          f"({per_sm['adjoint']} blocks/SM, grid {per_sm['grid']}; plain reverse sweep "
+          f"{plain['adjoint']:.1f} ms; bound {bounds['adjoint'][0]:.4f} ms, "
+          f"{bounds['adjoint'][1]}); the tape "
+          f"{tape_gb:.3f} GB (not in the bound); lane efficiency of a thread-per-pixel reverse "
+          f"sweep (forward ray counts by warp of 32 pixels): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in effs.items()) + f" ({card})")
+    times["kernels"] = per
     return max_err, times
+
+
+def grad_blocks_per_sm():
+    """{"tape", "adjoint": blocks per SM by the occupancy API, "grid": the
+    adjoint kernel's persistent grid} from the layout entries."""
+    from tpt_torch.kernels import _build
+    lib = _build.load_library()
+    tape, adj, grid, words = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
+    if (lib.tpt_trace_grad_tape_layout(ctypes.byref(tape)) != 0
+            or lib.tpt_trace_grad_adjoint_layout(ctypes.byref(words), ctypes.byref(adj),
+                                                 ctypes.byref(grid)) != 0):
+        raise AssertionError("the backward kernels' layout entries failed")
+    return {"tape": tape.value, "adjoint": adj.value, "grid": grid.value}
+
+
+def plain_split_ms(G, scene, table, cam20, cots, kw, band):
+    """The plain version's time (CUDA events) split as the two kernels split
+    the work: the forward of trace_paths with autograd's graph, which keeps
+    what the tape keeps, and autograd's reverse sweep, in row bands as
+    ``trace_grad_plain`` runs them.  {"tape": ms, "adjoint": ms}."""
+    from tpt_torch.integrator import make_scene_scan_fn, make_table_trace_fn, trace_paths
+    from tpt_torch.kernels.trace import pixel_band
+    width, height, spp = kw["width"], kw["height"], kw["spp"]
+    out = {"tape": 0.0, "adjoint": 0.0}
+    for r in range(0, height, band):
+        px, py = pixel_band(width, height, band, r, table.device)
+        table_l = table.detach().requires_grad_(True)
+        cam_l = cam20.detach().requires_grad_(True)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        marks[0].record()
+        with torch.enable_grad():
+            trace_fn = make_table_trace_fn(make_scene_scan_fn(scene, kw["counts"]), table_l,
+                                           kw["counts"][0])
+            res = trace_paths(trace_fn, G.camera_params_from_vector(cam_l), px, py, width,
+                              height, 0, kw["ray_depth"], spp, jitter=kw.get("jitter", "corner"),
+                              russian_roulette=kw["rr"])
+            obj = ((res.radiance * cots[0][:, r:r + band].reshape(res.radiance.shape)).sum()
+                   + (res.miss_dir * cots[1][:, :, r:r + band].reshape(res.miss_dir.shape)).sum()
+                   + (res.miss_thr * cots[2][:, :, r:r + band].reshape(res.miss_thr.shape)).sum())
+            marks[1].record()
+            torch.autograd.grad(obj, (table_l, cam_l), allow_unused=True)
+        marks[2].record()
+        torch.cuda.synchronize()
+        out["tape"] += marks[0].elapsed_time(marks[1])
+        out["adjoint"] += marks[1].elapsed_time(marks[2])
+    return out
 
 
 def train_phases(dev, card, K, G):
     """The training path through its entry point, then the 1080p training
-    step's time.  Returns the path's launches of (the trace kernel, the
-    backward kernel)."""
+    step's time.  Returns the path's launches of the trace kernel and
+    {"tape", "adjoint": each backward kernel's}."""
     from tpt_torch import inverse_demo
     from tpt_torch.profile_block import make_train_bench_step
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "inverse_demo.json")
-        K.LAUNCHES, G.GRAD_LAUNCHES = 0, 0
+        K.LAUNCHES, G.GRAD_LAUNCHES, G.TAPE_LAUNCHES, G.ADJOINT_LAUNCHES = 0, 0, 0, 0
         t0 = time.perf_counter()
         rc = inverse_demo.main(["--steps", str(TRAIN_STEPS), "--size", "512x512",
                                 "--device", "cuda", "--out", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, grad_launches = K.LAUNCHES, G.GRAD_LAUNCHES
+        pair = {"tape": G.TAPE_LAUNCHES, "adjoint": G.ADJOINT_LAUNCHES}
         with open(out) as f:
             res = json.load(f)
         pngs = sorted(n for n in os.listdir(tmp) if n.endswith(".png"))
     want = TRAIN_STEPS * TRAIN_VIEWS
-    if rc != 0 or grad_launches != want or launches < want:
-        raise AssertionError(f"inverse_demo: rc {rc}, {grad_launches} backward launches "
-                             f"(want {want}), {launches} trace launches")
+    if rc != 0 or grad_launches != want or launches < want or min(pair.values()) < want:
+        raise AssertionError(f"inverse_demo: rc {rc}, {grad_launches} backward calls "
+                             f"(want {want}), {pair} backward kernel launches, {launches} trace "
+                             f"launches")
     if not (np.isfinite(res["loss_last"]) and np.isfinite(res["loss_final_median"])
             and res["sphere_param_mae_after"] < 0.5 * res["sphere_param_mae_before"]
             and len(pngs) == 3):
         raise AssertionError(f"inverse_demo did not converge: {res}, {pngs}")
     phase("train", f"inverse_demo 512x512 depth 8, 2 views, {TRAIN_STEPS} steps: "
-          f"{launches} trace / {grad_launches} backward kernel launches, {wall:.1f} s wall, "
+          f"{launches} trace kernel launches, {grad_launches} backward calls ({pair['tape']} "
+          f"tape / {pair['adjoint']} adjoint kernel launches), {wall:.1f} s wall, "
           f"loss {res['loss_first']:.5f} -> median {res['loss_final_median']:.5f}, sphere "
           f"MAE {res['sphere_param_mae_before']} -> {res['sphere_param_mae_after']}, "
           f"emissive MAE {res['cuboid_param_mae_before']} -> {res['cuboid_param_mae_after']}")
@@ -410,7 +559,7 @@ def train_phases(dev, card, K, G):
     phase("train", f"train_bench step {WIDTH}x{HEIGHT} depth {DEPTH} spp 1 rr, SGD: "
           f"{ms:.2f} ms per step over 20 steps (host clock, synchronised), loss "
           f"{float(loss):.5f} ({card})")
-    return launches, grad_launches
+    return launches, pair
 
 
 def onehot_phases(dev, card, K):
@@ -525,12 +674,12 @@ def check_probe(name: str, got, want) -> float:
 def profiled(run, kernel: str, calls: int):
     """torch.profiler around ``run()``, which makes ``calls`` calls: (every
     device operation, those whose name holds ``kernel``).  The profiler now
-    and then hands back a trace with device events missing, so a trace
-    with fewer than ``calls`` such kernels is taken again, up to three
-    times in all."""
+    and then hands back a trace with device events missing, at times in
+    several traces in a row, so a trace with fewer than ``calls`` such
+    kernels is taken again, up to six times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -547,10 +696,9 @@ def mean_ms(events):
 
 
 def device_profile(fn, kernel: str, reps: int = 10):
-    """``fn``'s work on the device by torch.profiler, over ``reps`` calls
-    after one warm-up call: (mean device ms of the CUDA kernels whose name
-    holds ``kernel``, None when the profiler saw none; device operations
-    per call, kernels, memsets and copies alike; their names)."""
+    """The mean device ms of the CUDA kernels whose name holds ``kernel``
+    over ``reps`` calls of ``fn`` after one warm-up call (torch.profiler),
+    None when the profiler saw none."""
     fn()
     torch.cuda.synchronize()
 
@@ -558,8 +706,76 @@ def device_profile(fn, kernel: str, reps: int = 10):
         for _ in range(reps):
             fn()
 
-    ops, mine = profiled(run, kernel, reps)
-    return mean_ms(mine), len(ops) / reps, sorted({e.name for e in ops})
+    return mean_ms(profiled(run, kernel, reps)[1])
+
+
+# CUgraphNodeType of the CUDA driver API, by value
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+                    "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc",
+                    "mem_free", "batch_mem_op", "conditional")
+
+
+class KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the CUDA driver API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def captured_ops(fn) -> list:
+    """The device operations that one call of ``fn`` enqueues, read by
+    capturing the call on a side stream into a CUDA graph (driver API) that
+    is never launched: one "kind name" string per graph node, the name that
+    of a kernel node's function.  Unlike a profiler trace this loses no
+    event.  One call of ``fn`` on the side stream comes first, so that what
+    a wrapper makes once per stream (a workspace) is made outside the
+    capture.  A call that synchronises or copies from pageable memory
+    invalidates the capture, and that raises."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what}: CUDA driver error {rc}")
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    handle, graph = ctypes.c_void_p(side.cuda_stream), ctypes.c_void_p()
+    with torch.cuda.stream(side):
+        check(cu.cuStreamBeginCapture_v2(handle, 2), "cuStreamBeginCapture")   # relaxed mode
+        try:
+            fn()
+        finally:
+            check(cu.cuStreamEndCapture(handle, ctypes.byref(graph)), "cuStreamEndCapture")
+    try:
+        n = ctypes.c_size_t()
+        check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        ops = []
+        for node in nodes:
+            kind = ctypes.c_int()
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            name = (GRAPH_NODE_TYPES[kind.value] if kind.value < len(GRAPH_NODE_TYPES)
+                    else f"node type {kind.value}")
+            if kind.value == 0:
+                params, text = KernelNodeParams(), ctypes.c_char_p()
+                check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                       ctypes.byref(params)),
+                      "cuGraphKernelNodeGetParams")
+                for get_name, ptr in ((cu.cuFuncGetName, params.func),
+                                      (cu.cuKernelGetName, params.kern),
+                                      (cu.cuKernelGetName, params.func)):
+                    if ptr and get_name(ctypes.byref(text), ctypes.c_void_p(ptr)) == 0:
+                        name = f"kernel {text.value.decode()}"
+                        break
+            ops.append(name)
+        return ops
+    finally:
+        cu.cuGraphDestroy(graph)
 
 
 L2_BYTES = 50 << 20   # the H100's L2
@@ -643,11 +859,11 @@ def probe_timings(dev, card):
             rows, cols = P.output_shape(name, inputs[2].shape[0])
             b_ms, b_by = probe_bound(name, n, rows, cols)
             call = lambda: fn(*inputs)
-            dev_ms, ops, op_names = device_profile(call, P.KERNEL_OF[name])
+            dev_ms = device_profile(call, P.KERNEL_OF[name])
             cold_ms = cold_device_ms(fn, inputs, P.KERNEL_OF[name])
+            ops = captured_ops(call)
             rec = {"max_abs_err": err, "ms": cuda_ms(call, reps), "host_ms": host_ms(call),
-                   "device_ms": dev_ms, "device_cold_ms": cold_ms,
-                   "device_ops_per_call": ops, "device_ops": op_names,
+                   "device_ms": dev_ms, "device_cold_ms": cold_ms, "device_ops": ops,
                    "plain_ms": cuda_ms(lambda: plain(*inputs), 5),
                    "library_ms": (cuda_ms(library[name], reps) if library[name] else None),
                    "library_host_ms": (host_ms(library[name]) if library[name] else None),
@@ -662,8 +878,9 @@ def probe_timings(dev, card):
             share = ("not measured" if cold_ms is None else f"{b_ms / cold_ms:.0%} of the bound")
             phase("probes", f"{name} ({P.KERNEL_OF[name]}) GRID {grid}, {n} elements: max abs "
                   f"err {err:.3g}{repeat}; kernel {us(rec['ms'])} a call, {us(rec['host_ms'])} "
-                  f"of host time a call, {us(dev_ms)} in the kernel ({ops:g} device operations "
-                  f"a call, by torch.profiler: {', '.join(op_names)}), {us(cold_ms)} with a "
+                  f"of host time a call, {us(dev_ms)} in the kernel (torch.profiler; {len(ops)} "
+                  f"device operations a call, by stream capture: {', '.join(ops)}), "
+                  f"{us(cold_ms)} with a "
                   f"cold L2 ({share}), plain {us(rec['plain_ms'])}, "
                   f"library {'none' if rec['library_ms'] is None else us(rec['library_ms'])} a "
                   f"call, {us(rec['library_host_ms'])} of host time; bound "
@@ -674,17 +891,18 @@ def probe_timings(dev, card):
 def probe_phases(dev, card):
     """The probes' path (:func:`probe_path`), then :func:`probe_timings`;
     every probe call must make exactly one device operation, its kernel
-    (no memset, no copy).  Returns the kernels-line entries of the three
-    probe kernels: launches from the path, the other numbers those of each
-    kernel's first probe at GRID 100, and every probe's numbers under
-    "probes"."""
+    (no memset, no copy), read by :func:`captured_ops`.  Returns the
+    kernels-line entries of the three probe kernels: launches from the
+    path, the other numbers those of each kernel's first probe at GRID 100,
+    and every probe's numbers under "probes"."""
     from tpt_torch.kernels import probes as P
 
     launches = probe_path()
     per = probe_timings(dev, card)
     extra = {f"{name} GRID {grid}": rec["device_ops"] for name in P.PROBES
-             for grid, rec in per[name].items() if rec["device_ops_per_call"] != 1
-             or not all(P.KERNEL_OF[name] in op for op in rec["device_ops"])}
+             for grid, rec in per[name].items() if len(rec["device_ops"]) != 1
+             or not rec["device_ops"][0].startswith("kernel ")
+             or P.KERNEL_OF[name] not in rec["device_ops"][0]}
     if extra:
         raise AssertionError(f"probe calls that make other device operations than their one "
                              f"kernel: {extra}")
@@ -733,10 +951,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths, log = _build.ensure_built()
     _build.load_library()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if ln.startswith("==") or "registers" in ln or "spill" in ln]
     phase("build", f"{time.perf_counter() - t0:.2f} s -> "
-          f"{', '.join(os.path.relpath(p, REPO) for p in paths.values())} {' | '.join(ptxas)}")
+          f"{', '.join(os.path.relpath(p, REPO) for p in paths.values())}; ptxas: "
+          + "; ".join(f"{k} {v}" for k, v in ptxas_report(log).items()))
 
     scene = demo_scene().build(dev)
     cam = CameraConfig()
@@ -862,8 +1079,11 @@ def main() -> int:
     phase("throughput", f"{ms_block:.2f} ms per {BLOCK}-frame block, {mrays:.1f} Mrays/s "
           f"(traced segments / s) on {card}")
 
-    grad_err, grad_times = grad_phases(dev, card, K, G)
+    # the training path first, before torch.profiler first runs (the grad
+    # phase's per-kernel times), so its wall clock is taken as it was before
+    # the grad phase used the profiler
     train_launches, grad_launches = train_phases(dev, card, K, G)
+    grad_err, grad_times = grad_phases(dev, card, K, G)
 
     onehot_launches, onehot_times = onehot_phases(dev, card, K)
     probe_kernels = probe_phases(dev, card)
@@ -898,19 +1118,22 @@ def main() -> int:
         "bound_by": onehot_times["bound_by"],
         "library_ms": None,
         "select_ms": onehot_times["select_ms"],
-    }, {
-        "name": "trace_grad_kernel",
+    }] + [{
+        "name": f"trace_grad_{kernel}_kernel",
         "route": "cuda",
-        "source": "tpt_torch/csrc/trace_grad.cu",
+        "source": f"tpt_torch/csrc/{source}",
         "replaces": "tpt/kernels/trace_grad.py:446",
-        "launches": grad_launches,
+        "launches": grad_launches[kernel],
         "max_abs_err": grad_err,
-        "ms": grad_times["ms"],
-        "plain_ms": grad_times["plain_ms"],
-        "bound_ms": grad_times["bound_ms"],
-        "bound_by": grad_times["bound_by"],
+        "ms": grad_times["kernels"][kernel]["ms"],
+        "plain_ms": grad_times["kernels"][kernel]["plain_ms"],
+        "bound_ms": grad_times["kernels"][kernel]["bound_ms"],
+        "bound_by": grad_times["kernels"][kernel]["bound_by"],
         "library_ms": None,
-    }] + probe_kernels}))
+        "blocks_per_sm": grad_times["kernels"][kernel]["blocks_per_sm"],
+        "pair_ms": grad_times["ms"],
+    } for kernel, source in (("tape", "trace_grad.cu"), ("adjoint", "trace_grad_adjoint.cu"))]
+        + probe_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,7 +10,8 @@ probe kernels and wrappers are compared on one card, with one clock and
 the same inputs.  Each turn prints chip_smoke's probe
 lines and then one JSON line {"turn", "checkout", "probes": {probe: {grid:
 record}}}; each kernel is built into its own checkout's tpt_torch/_build.
-Exits non-zero if a turn fails.
+Exits non-zero if a turn fails.  ``run_turns`` runs the turns of
+grad_turns.py as well.
 """
 
 from __future__ import annotations
@@ -37,20 +38,35 @@ print(json.dumps({{"turn": {turn}, "checkout": {root!r},
 """
 
 
+def other_checkout(ap: argparse.ArgumentParser, path: str) -> str:
+    """The absolute root of another checkout of the port (``ap.error`` if
+    it holds no tpt_torch/)."""
+    other = os.path.abspath(path)
+    if not os.path.isdir(os.path.join(other, "tpt_torch")):
+        ap.error(f"{other} holds no tpt_torch/")
+    return other
+
+
+def run_turns(name: str, template: str, roots) -> int:
+    """Run ``template`` in a fresh Python process from each root in turn,
+    formatted with ``root``, ``smoke`` (this checkout's chip_smoke.py),
+    ``turn`` (its index) and ``this`` (whether the root is this checkout).
+    Returns the first failing turn's exit code, else 0."""
+    for turn, root in enumerate(roots):
+        code = template.format(root=root, smoke=os.path.join(HERE, "chip_smoke.py"), turn=turn,
+                               this=root == HERE)
+        rc = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=900).returncode
+        if rc != 0:
+            print(f"{name}: turn {turn} ({root}) failed with {rc}", file=sys.stderr)
+            return rc
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout (holding tpt_torch/)")
-    args = ap.parse_args(argv)
-    other = os.path.abspath(args.other)
-    if not os.path.isdir(os.path.join(other, "tpt_torch")):
-        ap.error(f"{other} holds no tpt_torch/")
-    for turn, root in enumerate((other, HERE, HERE, other)):
-        code = TURN.format(root=root, smoke=os.path.join(HERE, "chip_smoke.py"), turn=turn)
-        rc = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=900).returncode
-        if rc != 0:
-            print(f"probe_turns: turn {turn} ({root}) failed with {rc}", file=sys.stderr)
-            return rc
-    return 0
+    other = other_checkout(ap, ap.parse_args(argv).other)
+    return run_turns("probe_turns", TURN, (other, HERE, HERE, other))
 
 
 if __name__ == "__main__":

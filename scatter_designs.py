@@ -200,7 +200,7 @@ def main() -> int:
                 err = max(chip_smoke.check_probe("p1t", first, want),
                           chip_smoke.check_probe("p1t", second, want))
                 same = torch.equal(first.view(torch.int32), second.view(torch.int32))
-                dev_ms, _, _ = chip_smoke.device_profile(call, kernel, reps=20)
+                dev_ms = chip_smoke.device_profile(call, kernel, reps=20)
                 results.append({"grid": grid, "design": label, "blocks": blocks,
                                 "device_ms": dev_ms, "max_abs_err": err, "repeat_bit_equal": same})
                 shown = "not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us"

@@ -125,6 +125,8 @@ def assert_grads_close(got, want, counts):
     floors = {"table": 1e-3 * float(want.d_table.abs().max()),
               "camera": 1e-3 * float(want.d_cam.abs().max())}
     for name, (g, w) in groups.items():
+        if w.numel() == 0:   # no padded rows when all 128 are live
+            continue
         scale = max(float(w.abs().max()), floors["camera" if name in cam else "table"], 1e-6)
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * scale, msg=name)
 
@@ -166,6 +168,174 @@ def test_grad_wrapper_rejects_bad_inputs(device):
         G.trace_grad(args[0], args[1], args[2], 0, args[3].cpu(), *args[4:], counts=counts, **kw)
 
 
+def grad_inputs(device, scene, cam, w, h, spp, n_rows=None, seed=5, inv_proj=None):
+    """(scene, table, cam20, g_rad, g_missd, g_misst) for an n_rows x w band
+    of a w x h frame, the cotangents from a seeded generator."""
+    from tpt_torch.integrator import build_attr_table
+    from tpt_torch.kernels.trace_grad import camera_vector
+    inv_p, inv_v, _ = camera_matrices(cam, w, h)
+    inv_p = inv_p if inv_proj is None else inv_proj
+    n_rows = h if n_rows is None else n_rows
+    rng = torch.Generator().manual_seed(seed)
+    g = [torch.randn(shape, generator=rng).to(device)
+         for shape in ((3, n_rows, w), (spp, 3, n_rows, w), (spp, 3, n_rows, w))]
+    return (scene, build_attr_table(scene, scene.counts),
+            camera_vector(inv_p, inv_v, cam.focal_length, cam.aperture_diameter, device=device),
+            *g)
+
+
+def full_table_scene(device):
+    """The demo scene with 52 more spheres and 21 more cuboids inside its
+    room: 100 spheres and 28 cuboids, all 128 rows of the attribute table
+    live."""
+    import numpy as np
+    from tpt_torch.materials import Material
+    b = demo_scene()
+    rng = np.random.default_rng(3)
+
+    def material(k):
+        return Material.make(albedo=rng.uniform(0.2, 0.9, 3), emissive=(0.0, 0.0, 0.0),
+                             absorbance=rng.uniform(0.0, 0.5, 3),
+                             specular_chance=rng.uniform(0.0, 0.6),
+                             specular_roughness=rng.uniform(0.0, 1.0), ior=1.5,
+                             refraction_chance=rng.uniform(0.0, 0.4) if k % 3 == 0 else 0.0,
+                             refraction_roughness=rng.uniform(0.0, 0.5))
+
+    for k in range(52):
+        b.add_sphere(rng.uniform((-11.0, -10.0, -8.0), (11.0, 8.0, 4.0)),
+                     rng.uniform(0.4, 1.2), material(k))
+    for k in range(21):
+        b.add_cuboid(rng.uniform((-11.0, -10.0, -8.0), (11.0, 8.0, 4.0)),
+                     rng.uniform(0.5, 2.0, 3), material(k))
+    scene = b.build(device)
+    assert scene.counts == (100, 28)
+    return scene
+
+
+# (scene, width, height, ray depth, spp, rr, jitter, n_rows, row0, half_stores)
+GRAD_PAIR_CASES = {
+    "depth50": ("demo", 32, 32, 50, 1, False, "corner", None, 0, False),
+    "rows128": ("full", 48, 48, 13, 1, True, "corner", None, 0, False),
+    "spp3": ("demo", 32, 32, 13, 3, True, "center", None, 0, False),
+    "band": ("demo", 64, 64, 13, 2, True, "corner", 16, 24, False),
+    "half_stores": ("demo", 48, 48, 13, 2, True, "corner", None, 0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAD_PAIR_CASES))
+def test_grad_pair_matches_plain(device, case):
+    """The tape and adjoint kernels against trace_grad_plain: the tape at
+    its deepest (ray depth 50, rr off, in a closed room), all 128 table rows
+    live, 3 spp, a band with row0 > 0, and half_stores (also against the
+    full tape)."""
+    from tpt_torch.kernels import trace_grad as G
+    name, w, h, depth, spp, rr, jitter, n_rows, row0, half = GRAD_PAIR_CASES[case]
+    scene = full_table_scene(device) if name == "full" else demo_scene().build(device)
+    args = grad_inputs(device, scene, CameraConfig(), w, h, spp, n_rows)
+    kw = dict(width=w, height=h, ray_depth=depth, spp=spp, counts=scene.counts, rr=rr,
+              jitter=jitter, n_rows=n_rows, row0=row0)
+    launches = (G.GRAD_LAUNCHES, G.TAPE_LAUNCHES, G.ADJOINT_LAUNCHES)
+    got = G.trace_grad(*args[:3], 3, *args[3:], half_stores=half, **kw)
+    torch.cuda.synchronize()
+    assert (G.GRAD_LAUNCHES, G.TAPE_LAUNCHES, G.ADJOINT_LAUNCHES) == tuple(
+        n + 1 for n in launches)
+    want = G.trace_grad_plain(*args[:3], 3, *args[3:], **kw)
+    assert_grads_close(got, want, scene.counts)
+    assert int(got.n_zeroed) == int(want.n_zeroed)
+    if half:
+        assert_grads_close(got, G.trace_grad(*args[:3], 3, *args[3:], **kw), scene.counts)
+
+
+@pytest.mark.parametrize("spp,rr,jitter", [(1, True, "corner"), (3, False, "center")])
+def test_tape_takes_the_forward_decisions(device, spp, rr, jitter):
+    """The tape kernel's live-bounce counts, summed over the samples, are the
+    forward kernel's ray counts pixel for pixel: its decisions are the
+    forward kernel's."""
+    from tpt_torch.kernels import trace_grad as G
+    scene, inv_p, inv_v, focal, ap = setup(device, 64)
+    kw = dict(width=64, height=64, ray_depth=13, spp=spp, rr=rr, jitter=jitter,
+              counts=scene.counts)
+    args = grad_inputs(device, scene, CameraConfig(), 64, 64, spp)
+    n = G._tape_counts(*args[:3], 5, **kw)
+    rays = K.trace(scene, inv_p, inv_v, 5, focal, ap, **kw).ray_count
+    assert n.shape == (spp, 64, 64) and torch.equal(n.sum(0), rays.reshape(64, 64))
+
+
+def test_grad_pair_in_row_chunks(device, monkeypatch):
+    """A TAPE_BYTES_MAX of five rows' tape runs one call as seven chunks of
+    both kernels, which add into one result: within the bars of the
+    one-chunk result and of the plain version."""
+    from tpt_torch.kernels import trace_grad as G
+    scene = demo_scene().build(device)
+    args = grad_inputs(device, scene, CameraConfig(), 32, 32, 2)
+    kw = dict(width=32, height=32, ray_depth=13, spp=2, counts=scene.counts)
+    whole = G.trace_grad(*args[:3], 3, *args[3:], **kw)
+    monkeypatch.setattr(G, "TAPE_BYTES_MAX", G.tape_bytes(32, 5, 2, 13))
+    assert len(G.row_chunks(32, 32, 2, 13)) == 7
+    launches = (G.TAPE_LAUNCHES, G.ADJOINT_LAUNCHES)
+    got = G.trace_grad(*args[:3], 3, *args[3:], **kw)
+    torch.cuda.synchronize()
+    assert (G.TAPE_LAUNCHES, G.ADJOINT_LAUNCHES) == (launches[0] + 7, launches[1] + 7)
+    assert_grads_close(got, whole, scene.counts)
+    assert_grads_close(got, G.trace_grad_plain(*args[:3], 3, *args[3:], **kw), scene.counts)
+
+
+def test_grad_pair_back_to_back(device):
+    """50 calls in a row on one stream, each within the bars: the last block
+    of every call leaves the workspace's queue and counter at 0."""
+    from tpt_torch.kernels import trace_grad as G
+    scene = demo_scene().build(device)
+    args = grad_inputs(device, scene, CameraConfig(), 32, 32, 1)
+    kw = dict(width=32, height=32, ray_depth=13, spp=1, counts=scene.counts)
+    outs = [G.trace_grad(*args[:3], 3, *args[3:], **kw) for _ in range(50)]
+    torch.cuda.synchronize()
+    want = G.trace_grad_plain(*args[:3], 3, *args[3:], **kw)
+    for got in outs:
+        assert_grads_close(got, want, scene.counts)
+
+
+def test_grad_pair_on_two_streams(device):
+    """Calls on the default stream and on a side stream, interleaved, each
+    with its own workspace; every call within the bars."""
+    from tpt_torch.kernels import trace_grad as G
+    scene = demo_scene().build(device)
+    args = grad_inputs(device, scene, CameraConfig(), 48, 48, 1)
+    kw = dict(width=48, height=48, ray_depth=13, spp=1, counts=scene.counts)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    outs = []
+    for _ in range(4):
+        outs.append(G.trace_grad(*args[:3], 3, *args[3:], **kw))
+        with torch.cuda.stream(side):
+            outs.append(G.trace_grad(*args[:3], 3, *args[3:], **kw))
+    torch.cuda.synchronize()
+    assert len(G._WORKSPACES) >= 2
+    want = G.trace_grad_plain(*args[:3], 3, *args[3:], **kw)
+    for got in outs:
+        assert_grads_close(got, want, scene.counts)
+
+
+def test_grad_pair_zeroes_what_plain_zeroes(device):
+    """A pinhole looking along +x (its right column is +z) and an inverse
+    projection whose first row is zero make every primary ray's z direction
+    exactly 0: a cuboid winner's slab test divides by it, and the adjoint
+    gives NaN where the plain version does.  The finite filter zeroes the
+    same number of entries in both, and the rest agree within the bars."""
+    from tpt_torch.kernels import trace_grad as G
+    scene = demo_scene().build(device)
+    cam = CameraConfig(position=(-10.0, 0.0, 0.0), look_x=0.0, look_y=0.0,
+                       aperture_diameter=0.0)
+    inv_p, _, _ = camera_matrices(cam, 24, 24)
+    inv_p = torch.as_tensor(inv_p).clone()
+    inv_p[0] = 0.0
+    args = grad_inputs(device, scene, cam, 24, 24, 1, inv_proj=inv_p)
+    kw = dict(width=24, height=24, ray_depth=4, spp=1, counts=scene.counts, rr=False)
+    got = G.trace_grad(*args[:3], 0, *args[3:], **kw)
+    want = G.trace_grad_plain(*args[:3], 0, *args[3:], **kw)
+    assert int(want.n_zeroed) > 0 and int(got.n_zeroed) == int(want.n_zeroed)
+    assert_grads_close(got, want, scene.counts)
+
+
 def test_trace_diff_backward_launches_grad_kernel(device):
     from tpt_torch.kernels import trace_grad as G
     from tpt_torch.integrator import apply_environment_blocked
@@ -204,6 +374,7 @@ def test_profile_block_splits_a_train_step(device):
     from tpt_torch.profile_block import profile_train_steps
     summary, rows = profile_train_steps(64, 64, 2)
     assert summary["forward_kernel_ms_per_step"] > 0 and summary["backward_kernel_ms_per_step"] > 0
+    assert summary["tape_kernel_ms_per_step"] > 0 and summary["adjoint_kernel_ms_per_step"] > 0
     assert summary["optimizer_ms_per_step"] >= 0 and 0.0 <= summary["idle_share"] < 1.0 and rows
 
 
@@ -335,6 +506,23 @@ def test_scatter_layout_comes_from_the_source(device):
     assert (words.value - 1) % (2 * P.R) == 0 and words.value > 2 * P.R * sms
     work = P._workspace(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
     assert work.numel() == words.value and int(work[-1]) == 0
+
+
+def test_probe_calls_capture_as_their_one_kernel(device):
+    """chip_smoke.captured_ops reads each probe call as one node, its
+    kernel; a call with a zero fill beside it as two; a call that
+    synchronises invalidates the capture and raises."""
+    import chip_smoke
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    inputs = make_inputs(4, device)
+    for name in P.PROBES:
+        ops = chip_smoke.captured_ops(lambda: getattr(P, name)(*inputs))
+        assert len(ops) == 1 and ops[0].startswith("kernel ") and P.KERNEL_OF[name] in ops[0]
+    assert len(chip_smoke.captured_ops(lambda: (torch.zeros(64, device=device),
+                                                 P.p2(*inputs)))) == 2
+    with pytest.raises(Exception):
+        chip_smoke.captured_ops(lambda: float(P.p2(*inputs).sum()))
 
 
 def test_probe_wrappers_reject_bad_inputs(device):

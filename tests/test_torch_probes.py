@@ -146,10 +146,10 @@ def test_no_fallback_off_the_cpu():
 
 def test_probes_path_imports_no_jax():
     """The probes' entry point, run on the CPU, chip_smoke.py,
-    probe_turns.py and scatter_designs.py import nothing of JAX, the JAX
-    package, benchmarks/ or optax."""
+    probe_turns.py, grad_turns.py and scatter_designs.py import nothing of
+    JAX, the JAX package, benchmarks/ or optax."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys; import chip_smoke, probe_turns, scatter_designs; "
+    code = ("import sys; import chip_smoke, probe_turns, grad_turns, scatter_designs; "
             "from tpt_torch import bwd_probes; "
             "assert bwd_probes.main(['p1', 'p6', '--device', 'cpu']) == 0; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -170,3 +170,22 @@ def test_probe_turns_refuses_a_checkout_without_the_port(tmp_path):
     with pytest.raises(SystemExit) as exc:
         probe_turns.main([str(tmp_path)])
     assert exc.value.code == 2
+
+
+def test_turns_run_from_each_root_and_stop_at_the_first_failure(tmp_path):
+    """probe_turns.run_turns, which grad_turns.py shares: each turn is a fresh
+    process started from its root, told its index and whether the root is
+    this checkout; the first failing turn's exit code ends the run."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import probe_turns
+    finally:
+        sys.path.remove(repo)
+    log = tmp_path / "turns.txt"
+    template = ("import os, sys\n"
+                "open(" + repr(str(log)) + ", 'a').write(f'{turn} {this} {{os.getcwd()}}\\n')\n"
+                "sys.exit(3 if {turn} == 1 else 0)\n")
+    roots = [str(tmp_path), probe_turns.HERE, str(tmp_path)]
+    assert probe_turns.run_turns("test", template, roots) == 3
+    assert log.read_text().splitlines() == [f"0 False {tmp_path}", f"1 True {repo}"]

@@ -49,9 +49,20 @@ ENTRY_POINTS = {
     # 3 geometry pointers, the table, 2 counts, the host camera pointer,
     # 9 ints, 5 output pointers, the stream
     "tpt_trace_onehot": ("trace.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 9 + [_P] * 5 + [_P]),
-    # 4 scene/table pointers, 2 counts, the device cam20 pointer, 11 ints,
-    # 3 cotangent pointers, 2 output pointers, the stream
-    "tpt_trace_grad": ("trace_grad.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
+    # 4 scene/table pointers, 2 counts, the device cam20 pointer, 11 ints
+    # (the last the ablate flags), the tape's 3 pointers, the stream
+    "tpt_trace_grad_tape": ("trace_grad.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 3
+                            + [_P]),
+    # out: the tape kernel's blocks per SM (no launch)
+    "tpt_trace_grad_tape_layout": ("trace_grad.cu", [_P]),
+    # the table, 2 counts, the device cam20 pointer, 11 ints (the last the
+    # ablate flags), the tape's 3 pointers, 3 cotangent pointers, their
+    # channel stride, first_chunk, last_chunk, grid, the workspace, the
+    # output, the stream
+    "tpt_trace_grad_adjoint": ("trace_grad_adjoint.cu", [_P] + [_I] * 2 + [_P] + [_I] * 11
+                               + [_P] * 6 + [_L] + [_I] * 3 + [_P] * 2 + [_P]),
+    # out: the workspace's f32 words, the blocks per SM, the grid (no launch)
+    "tpt_trace_grad_adjoint_layout": ("trace_grad_adjoint.cu", [_P] * 3),
     # idx, table, cols, col, n, out, the stream
     "tpt_probe_gather": ("probes.cu", [_P, _P, _I, _I, _L, _P, _P]),
     # idx, g (16-byte aligned), the window first, n (multiples of 4), the
@@ -87,9 +98,10 @@ def library_path(source: str) -> Path:
 def ensure_built() -> Tuple[Dict[str, Path], str]:
     """Compile every library whose hash is not built yet, one nvcc process
     per source, all started together.  Returns ({source: path}, compiler
-    output); the output is empty when nothing was built.  Each library is
-    written to a temporary name and renamed into place, so concurrent
-    builds never load a partial file."""
+    output of every library, ptxas's report included); the output of a
+    library built before is read from the ``.log`` file kept beside it.
+    Each library is written to a temporary name and renamed into place
+    after its log, so concurrent builds never load a partial file."""
     paths = {src: library_path(src) for src in _sources()}
     jobs = []
     try:
@@ -102,13 +114,12 @@ def ensure_built() -> Tuple[Dict[str, Path], str]:
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / src)]
             jobs.append((src, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log = []
         for src, path, tmp, proc in jobs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc {src} failed ({proc.returncode}):\n{out}")
+            path.with_suffix(".log").write_text(out)
             os.replace(tmp, path)
-            log.append(f"== {src}\n{out}")
     finally:
         for _, _, tmp, proc in jobs:
             if proc.poll() is None:
@@ -116,6 +127,8 @@ def ensure_built() -> Tuple[Dict[str, Path], str]:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    log = [f"== {src}\n{path.with_suffix('.log').read_text()}" for src, path in paths.items()
+           if path.with_suffix(".log").exists()]
     return paths, "".join(log)
 
 

@@ -1,4 +1,4 @@
-"""The backward kernel's wrapper, its plain PyTorch version, and
+"""The backward kernels' wrapper, its plain PyTorch version, and
 ``trace_diff``, the differentiable trace (port of tpt.kernels.trace_grad).
 
 ``trace_diff`` is a ``torch.autograd.Function`` over two differentiable
@@ -11,20 +11,38 @@ inputs, both built from the caller's tensors by differentiable torch ops:
     inverse matrices, the focal length and the aperture.
 
 Its forward is the trace kernel of tpt_torch.kernels.trace at one frame;
-its backward is :func:`trace_grad`, which launches the hand-written CUDA
-kernel tpt_torch/csrc/trace_grad.cu (replacing pallas_trace_grad) for CUDA
-tensors and runs :func:`trace_grad_plain` — autograd through the plain
-integrator — for CPU tensors.  There is no fallback from the device to the
-plain version.  ``GRAD_LAUNCHES`` counts launches of the backward kernel.
+its backward is :func:`trace_grad`, which for CUDA tensors launches the two
+hand-written CUDA kernels that replace pallas_trace_grad, and for CPU
+tensors runs :func:`trace_grad_plain` — autograd through the plain
+integrator.  There is no fallback from the device to the plain version.
 
-The finite filter of the TPU wrapper is kept: non-finite cotangent entries
-(measure-zero events such as an axis-parallel ray on a cuboid winner) are
-zeroed, and their count is returned as a device tensor, so reading it is
-the caller's choice of when to synchronise.
+The two kernels share a tape in device memory (tpt_torch/csrc/grad.cuh):
+``trace_grad_tape_kernel`` (csrc/trace_grad.cu) runs the forward sweep and
+writes each live bounce's input carry (10 words; with ``half_stores`` only
+at even bounces) and decision code (1 word), and each (pixel, sample)
+item's live-bounce count; ``trace_grad_adjoint_kernel``
+(csrc/trace_grad_adjoint.cu) reads it back in the reverse sweep, runs the
+camera adjoint, reduces, applies the finite filter and writes the result.
+The tape takes :func:`tape_bytes` — 4 x pixels x spp x (10 x slots +
+ray_depth + 1) bytes, slots = ray_depth (or half of it), about 1.19 GB at
+1080p, depth 13, 1 spp — from the caching allocator (``torch.empty``,
+never zeroed).  A launch whose tape would pass ``TAPE_BYTES_MAX`` runs the
+two kernels over row chunks (:func:`row_chunks`) that reuse one tape; the
+adjoint kernel of each chunk adds to per-block partials in a workspace made
+once per (device, stream), and the last chunk's merges them.  The finite
+filter of the TPU wrapper is kept inside the merge: non-finite cotangent
+entries (measure-zero events such as an axis-parallel ray on a cuboid
+winner) are zeroed, and their count is returned as a device tensor, so
+reading it is the caller's choice of when to synchronise.
+
+``GRAD_LAUNCHES`` counts backward calls on the card (one per
+:func:`trace_grad`), ``TAPE_LAUNCHES`` and ``ADJOINT_LAUNCHES`` each
+kernel's launches (one per row chunk).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import NamedTuple, Tuple
@@ -40,7 +58,24 @@ from .trace import pixel_band, trace
 N_CAM = 20  # ip00 ip01 ip02 ip10 ip11 ip12, right, up, backward, eye, focal, aperture
 ABLATE_MODES = ("none", "nocam", "nostores", "nodtbl", "norev", "primalonly")
 
+# The ablate modes (timing probes of the TPU kernel) as the phases they turn
+# off (csrc/grad.cuh kFlag*): nostores keeps no carries on the tape (the
+# reverse sweep replays the first bounce's carry), norev runs no reverse
+# sweep, primalonly replays each bounce without its adjoint, nocam skips the
+# camera adjoint, nodtbl the table accumulation.
+STORES, REVERSE, ADJOINT, CAMERA, TABLE = 1, 2, 4, 8, 16
+ALL_PHASES = STORES | REVERSE | ADJOINT | CAMERA | TABLE
+ABLATE_FLAGS = {"none": ALL_PHASES, "nocam": ALL_PHASES & ~CAMERA,
+                "nostores": ALL_PHASES & ~STORES, "nodtbl": ALL_PHASES & ~TABLE,
+                "norev": ALL_PHASES & ~REVERSE, "primalonly": ALL_PHASES & ~ADJOINT}
+
+CARRY_WORDS = 10                 # o, d, thr, seed (csrc/grad.cuh)
+TAPE_BYTES_MAX = 2 << 30         # the most tape one launch of the pair takes
+OUT_WORDS = ATTR_ROWS * ATTR_COLS + N_CAM + 2   # d_table, d_cam, n_zeroed (i64)
+
 GRAD_LAUNCHES = 0
+TAPE_LAUNCHES = 0
+ADJOINT_LAUNCHES = 0
 LAST_ZEROED = None  # n_zeroed of the last backward of trace_diff (a device tensor)
 
 
@@ -141,50 +176,181 @@ def _plain_band(scene, table, cam20, frame, g_rad, g_missd, g_misst, width, heig
     return d_table, d_cam
 
 
-def _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, *, width, height,
-            ray_depth, spp, counts, n_rows, row0, jitter, rr, half_stores,
-            ablate) -> GradResult:
-    global GRAD_LAUNCHES
-    from ._build import load_library
+def carry_slots(ray_depth: int, half_stores: bool) -> int:
+    """Carries a (pixel, sample) item keeps: every bounce's, or with
+    ``half_stores`` the even bounces' (csrc/grad.cuh carry_slots)."""
+    return (ray_depth + 1) // 2 if half_stores else ray_depth
 
-    device = table.device
-    if device.type != "cuda":
-        raise ValueError(f"the backward kernel runs on CUDA tensors, got {device}")
-    npix = n_rows * width
+
+def tape_bytes(width: int, n_rows: int, spp: int, ray_depth: int,
+               half_stores: bool = False) -> int:
+    """Bytes of the tape for an n_rows x width band: the carries, the
+    decision codes and the live-bounce counts, 4 bytes a word."""
+    words = CARRY_WORDS * carry_slots(ray_depth, half_stores) + ray_depth + 1
+    return 4 * n_rows * width * spp * words
+
+
+def row_chunks(n_rows: int, width: int, spp: int, ray_depth: int,
+               half_stores: bool = False) -> list:
+    """(first row, rows) of the chunks a launch runs in, each chunk's tape
+    at most ``TAPE_BYTES_MAX`` (at least one row a chunk)."""
+    per_row = tape_bytes(width, 1, spp, ray_depth, half_stores)
+    rows = max(1, min(n_rows, TAPE_BYTES_MAX // per_row))
+    return [(r, min(rows, n_rows - r)) for r in range(0, n_rows, rows)]
+
+
+def lane_efficiency(ray_count: torch.Tensor) -> float:
+    """The lane efficiency of a reverse sweep that gives each thread one
+    pixel's path: the sum of the per-pixel path lengths ``ray_count`` over
+    32 x the sum, over each 32 consecutive pixels (a warp; the last one
+    padded with zeros), of their longest path."""
+    n = ray_count.detach().reshape(-1).to(torch.float64)
+    total = float(n.sum())
+    if total == 0.0:
+        return 1.0
+    n = torch.nn.functional.pad(n, (0, -n.numel() % 32))
+    return total / (32.0 * float(n.reshape(-1, 32).amax(dim=1).sum()))
+
+
+_WORKSPACES = {}   # (device index, stream) -> (workspace, grid)
+
+
+def _workspace(lib, device: torch.device, stream: int):
+    """The adjoint kernel's workspace for one (device, stream): the
+    per-block partials and two counters, zeroed once when made (the kernel
+    leaves the counters 0), and the persistent grid it was sized for."""
+    key = (device.index, stream)
+    if key not in _WORKSPACES:
+        words, per_sm, grid = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
+        err = lib.tpt_trace_grad_adjoint_layout(ctypes.byref(words), ctypes.byref(per_sm),
+                                                ctypes.byref(grid))
+        if err != 0 or grid.value <= 0:
+            raise RuntimeError(f"tpt_trace_grad_adjoint_layout failed: CUDA error {err}")
+        _WORKSPACES[key] = (torch.zeros(words.value, dtype=torch.float32, device=device),
+                            grid.value)
+    return _WORKSPACES[key]
+
+
+def _device_inputs(device, scene, table, cam20, cotangents, npix: int, spp: int) -> dict:
+    """The kernels' inputs as contiguous f32 tensors on ``device`` (a CUDA
+    device), by name; ``cotangents`` (g_rad, g_missd, g_misst) may be None
+    (the tape alone).  Raises ValueError naming the first wrong tensor."""
     expect = {
         "scene.sphere_pos_radius": (scene.sphere_pos_radius, (MAX_SPHERES, 4)),
         "scene.cuboid_min": (scene.cuboid_min, (MAX_CUBOIDS, 3)),
         "scene.cuboid_max": (scene.cuboid_max, (MAX_CUBOIDS, 3)),
         "table": (table, (ATTR_ROWS, ATTR_COLS)),
         "cam20": (cam20, (N_CAM,)),
-        "g_rad": (g_rad, (3, npix)),
-        "g_missd": (g_missd, (spp, 3, npix)),
-        "g_misst": (g_misst, (spp, 3, npix)),
     }
+    if cotangents is not None:
+        for name, t, shape in zip(("g_rad", "g_missd", "g_misst"), cotangents,
+                                  ((3, npix), (spp, 3, npix), (spp, 3, npix))):
+            expect[name] = (t, shape)
     args = {}
     for name, (t, shape) in expect.items():
         if t.device != device or t.dtype != torch.float32 or t.numel() != math.prod(shape):
             raise ValueError(f"{name} must be f32{list(shape)} on {device}, got "
                              f"{t.dtype}{list(t.shape)} on {t.device}")
         args[name] = t.detach().contiguous()
-    d_table = torch.zeros((ATTR_ROWS, ATTR_COLS), dtype=torch.float32, device=device)
-    d_cam = torch.zeros((N_CAM,), dtype=torch.float32, device=device)
+    return args
 
+
+def _tape_words(pixels: int, spp: int, ray_depth: int, half_stores: bool):
+    """The words of the tape's (carries, codes, counts) for ``pixels`` pixels."""
+    return (spp * carry_slots(ray_depth, half_stores) * CARRY_WORDS * pixels,
+            spp * ray_depth * pixels, spp * pixels)
+
+
+def _empty_tape(device, words):
+    """(carries, codes, counts) of the given sizes, unzeroed."""
+    return tuple(torch.empty(n, dtype=dt, device=device)
+                 for n, dt in zip(words, (torch.float32, torch.int32, torch.int32)))
+
+
+def _launch_tape(lib, args, counts, band, tape, stream):
+    """One launch of the tape kernel; ``band`` holds its 11 int arguments
+    from the frame to the ablate flags."""
+    global TAPE_LAUNCHES
+    err = lib.tpt_trace_grad_tape(
+        args["scene.sphere_pos_radius"].data_ptr(), args["scene.cuboid_min"].data_ptr(),
+        args["scene.cuboid_max"].data_ptr(), args["table"].data_ptr(), counts[0], counts[1],
+        args["cam20"].data_ptr(), *band, *(t.data_ptr() for t in tape), stream)
+    if err != 0:
+        raise RuntimeError(f"tpt_trace_grad_tape launch failed: CUDA error {err}")
+    TAPE_LAUNCHES += 1
+
+
+def _band_ints(frame, width, height, rows, row0, spp, ray_depth, jitter, rr, half_stores,
+               ablate):
+    return (int(frame), width, height, rows, int(row0), spp, ray_depth, int(jitter == "center"),
+            int(bool(rr)), int(bool(half_stores)), ABLATE_FLAGS[ablate])
+
+
+def _cuda_device(table) -> torch.device:
+    if table.device.type != "cuda":
+        raise ValueError(f"the backward kernels run on CUDA tensors, got {table.device}")
+    return table.device
+
+
+def _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, *, width, height,
+            ray_depth, spp, counts, n_rows, row0, jitter, rr, half_stores,
+            ablate) -> GradResult:
+    global GRAD_LAUNCHES, ADJOINT_LAUNCHES
+    from ._build import load_library
+
+    device = _cuda_device(table)
+    npix = n_rows * width
+    args = _device_inputs(device, scene, table, cam20, (g_rad, g_missd, g_misst), npix, spp)
+    chunks = row_chunks(n_rows, width, spp, ray_depth, half_stores)
+    out = torch.empty(OUT_WORDS, dtype=torch.float32, device=device)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tpt_trace_grad(
-            args["scene.sphere_pos_radius"].data_ptr(), args["scene.cuboid_min"].data_ptr(),
-            args["scene.cuboid_max"].data_ptr(), args["table"].data_ptr(),
-            counts[0], counts[1], args["cam20"].data_ptr(), int(frame), width, height,
-            n_rows, int(row0), spp, ray_depth, int(jitter == "center"), int(bool(rr)),
-            int(bool(half_stores)), ABLATE_MODES.index(ablate), args["g_rad"].data_ptr(),
-            args["g_missd"].data_ptr(), args["g_misst"].data_ptr(), d_table.data_ptr(),
-            d_cam.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"tpt_trace_grad launch failed: CUDA error {err}")
+        work, grid = _workspace(lib, device, stream)
+        tape = _empty_tape(device, _tape_words(max(rows for _, rows in chunks) * width, spp,
+                                               ray_depth, half_stores))
+        for k, (r, rows) in enumerate(chunks):
+            band = _band_ints(frame, width, height, rows, row0 + r, spp, ray_depth, jitter, rr,
+                              half_stores, ablate)
+            _launch_tape(lib, args, counts, band, tape, stream)
+            first = 4 * r * width   # bytes to the chunk's first pixel
+            err = lib.tpt_trace_grad_adjoint(
+                args["table"].data_ptr(), counts[0], counts[1], args["cam20"].data_ptr(), *band,
+                *(t.data_ptr() for t in tape), args["g_rad"].data_ptr() + first,
+                args["g_missd"].data_ptr() + first, args["g_misst"].data_ptr() + first, npix,
+                int(k == 0), int(k == len(chunks) - 1), grid, work.data_ptr(), out.data_ptr(),
+                stream)
+            if err != 0:
+                raise RuntimeError(f"tpt_trace_grad_adjoint launch failed: CUDA error {err}")
+            ADJOINT_LAUNCHES += 1
     GRAD_LAUNCHES += 1
-    return finite_filter(d_table, d_cam)
+    n_table = ATTR_ROWS * ATTR_COLS
+    return GradResult(out[:n_table].view(ATTR_ROWS, ATTR_COLS), out[n_table:n_table + N_CAM],
+                      out[n_table + N_CAM:].view(torch.int64).reshape(()))
+
+
+def _tape_counts(scene, table, cam20, frame, *, width: int, height: int, ray_depth: int,
+                spp: int, counts: Tuple[int, int], n_rows: int | None = None, row0: int = 0,
+                jitter: str = "corner", rr: bool = True) -> torch.Tensor:
+    """The tape kernel alone over one band (CUDA tensors only): each (pixel,
+    sample) item's live bounces, i32[spp, n_rows, width].  Their sum over
+    the samples is the forward kernel's ``ray_count`` exactly when the tape
+    kernel took the forward kernel's decisions."""
+    from ._build import load_library
+
+    _check_args(counts, jitter, spp, ray_depth)
+    n_rows = height if n_rows is None else n_rows
+    device = _cuda_device(table)
+    args = _device_inputs(device, scene, table, cam20, None, n_rows * width, spp)
+    if tape_bytes(width, n_rows, spp, ray_depth) > TAPE_BYTES_MAX:
+        raise ValueError(f"the band's tape passes TAPE_BYTES_MAX ({TAPE_BYTES_MAX} bytes)")
+    tape = _empty_tape(device, _tape_words(n_rows * width, spp, ray_depth, False))
+    lib = load_library()
+    with torch.cuda.device(device):
+        _launch_tape(lib, args, counts, _band_ints(frame, width, height, n_rows, row0, spp,
+                                                   ray_depth, jitter, rr, False, "none"),
+                     tape, torch.cuda.current_stream(device).cuda_stream)
+    return tape[2].view(spp, n_rows, width)
 
 
 def trace_grad(scene, table, cam20, frame, g_rad, g_missd, g_misst, *,

@@ -15,10 +15,10 @@ the device kernels by total time.
 (1920x1080, ray depth 13, 1 spp, Russian roulette on, loss
 ``mean((img - 0.25)^2)``, SGD with lr 0.01 on the material tables): one
 warm-up step, then steps under the profiler.  Device time is split into the
-forward trace kernel, the backward kernel, the optimizer update (the
-``tpt::optimizer`` range) and the rest (the environment fetch and the loss,
-their backward, the finite filter, the maps from the table to the scene),
-each per step, plus the idle share.
+forward trace kernel, the backward's two kernels (tape and adjoint, also
+each apart), the optimizer update (the ``tpt::optimizer`` range) and the
+rest (the environment fetch and the loss, their backward, the maps from
+the table to the scene), each per step, plus the idle share.
 
     python -m tpt_torch.profile_block [--train]
 """
@@ -166,7 +166,9 @@ def profile_train_steps(width: int, height: int, n_steps: int):
                   reverse=True)
     busy = sum(r[0] for r in rows)
     fwd = sum(r[0] for r in rows if "trace_progressive_kernel" in r[2])
-    bwd = sum(r[0] for r in rows if "trace_grad_kernel" in r[2])
+    tape = sum(r[0] for r in rows if "trace_grad_tape_kernel" in r[2])
+    adjoint = sum(r[0] for r in rows if "trace_grad_adjoint_kernel" in r[2])
+    bwd = tape + adjoint
     opt = sum(e.device_time_total / 1e3 for e in prof.events()
               if e.name == "tpt::optimizer" and e.device_type.name == "CPU")
     summary = {
@@ -174,6 +176,8 @@ def profile_train_steps(width: int, height: int, n_steps: int):
         "window_ms_per_step": window_ms / n_steps,
         "forward_kernel_ms_per_step": fwd / n_steps,
         "backward_kernel_ms_per_step": bwd / n_steps,
+        "tape_kernel_ms_per_step": tape / n_steps,
+        "adjoint_kernel_ms_per_step": adjoint / n_steps,
         "optimizer_ms_per_step": opt / n_steps,
         "env_loss_rest_ms_per_step": (busy - fwd - bwd - opt) / n_steps,
         "idle_share": 1.0 - busy / window_ms,
