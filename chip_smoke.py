@@ -6,7 +6,11 @@ drives the port's two paths through their entry points:
 
   * the render path: the progressive render of the demo scene at
     1920x1080, ray depth 13, 1 spp, thin-lens depth of field, the 256^2
-    atmosphere, in 30-frame blocks, through ``tpt_torch.cli render``;
+    atmosphere, in 30-frame blocks, through ``tpt_torch.cli render``: one
+    launch of the forward kernel a block, in its environment mode (held bit
+    for bit to its plain version at 256^2 and at the 1080p block, beside the
+    slot mode's check), the block's peak allocation below the miss slots'
+    size, and the per-frame and block lane efficiencies;
   * the training path: ``tpt_torch.inverse_demo`` (512x512, ray depth 8,
     two views, fixed-depth transport, clipped Adam, 200 steps), then 20
     timed steps of the 1080p training step of benchmarks/train_bench.py;
@@ -36,8 +40,9 @@ non-zero without printing a result.
 The second-to-last line is a JSON object with each kernel's launch count
 on the paths, its error against the plain version, its time against the
 plain version's and one PyTorch call's, and its bound (the least time an
-H100 SXM could take for the same work), and for the probe kernels the host
-time a call; the last line is
+H100 SXM could take for the same work), for the forward kernel the block's
+lane efficiency and for the probe kernels the host time a call; the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -74,6 +79,13 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # usual ratio; the camera adjoint likewise.  Lower counts only lower the
 # bound, which is the least time the card could take.
 OPS_SPHERE, OPS_CUBOID, OPS_BOUNCE, OPS_CAMERA, ADJOINT = 24, 27, 110, 80, 3
+# The environment mode's float operations at one escape (csrc/trace.cu
+# environment() and its caller), each path's least: the face's 3 compares,
+# max and 1 / ma (2), s and t (6), the taps' position (4), floors (2),
+# fractions and their complements (4), three channels' bilinear blend (27)
+# and radiance + throughput x environment (6).  Sign flips, the integer
+# clamps and the row's index are not counted.
+OPS_ENV = 54
 OPS_P4 = 33   # p4's f(x) + f'(x) g per element, counted from csrc/probes.cu
 
 
@@ -111,15 +123,28 @@ def scene_bytes(counts, table: bool) -> int:
     return geometry + 4 * (24 * (ns + nc) if table else 14 * (ns + nc))
 
 
-def trace_bound(segments: int, samples: int, pixels: int, slots: int, counts, table=False):
+def trace_bound(segments: int, samples: int, pixels: int, slots: int, counts, table=False,
+                env_bytes=None, escapes=0):
     """Bound of a forward launch: every traced segment's fold over the live
     primitives and bounce, every sample's camera ray; the scene read once,
     per pixel the radiance, 2 x slots miss vectors, the ray count and the
-    seed written once."""
+    seed written once.  The environment mode (``env_bytes``, its table's
+    size, given; no slots) also reads the table once and adds OPS_ENV for
+    each of the ``escapes`` samples that looked it up."""
     ns, nc = counts
     ops = segments * (OPS_SPHERE * ns + OPS_CUBOID * nc + OPS_BOUNCE) + samples * OPS_CAMERA
     nbytes = scene_bytes(counts, table) + pixels * (12 + 2 * slots * 12 + 4 + 8)
+    if env_bytes is not None:
+        ops += escapes * OPS_ENV
+        nbytes += env_bytes
     return bound(ops, nbytes)
+
+
+def escaped_samples(miss_dir) -> int:
+    """The samples whose path escaped, of a slot-mode launch's miss_dir
+    f32[F * spp, 3, H, W]: an escape stores its unit direction, any other
+    end (and a masked frame) leaves the slot zero."""
+    return int(miss_dir.ne(0).any(dim=1).sum())
 
 
 def grad_bound(segments: int, samples: int, pixels: int, spp: int, counts):
@@ -153,16 +178,19 @@ def grad_kernel_bounds(segments: int, samples: int, pixels: int, spp: int, count
 
 def ptxas_report(log: str) -> dict:
     """{kernel: "R registers, S/L bytes spill stores/loads, F bytes stack"}
-    from nvcc's -Xptxas -v output, by entry function (templates by their
-    mangled arguments)."""
+    from nvcc's -Xptxas -v output, by entry function (a template by its
+    arguments: kernel<false,true>, kernel<2>)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            short = re.search(r"([a-z_]+_kernel)(I\w*?E)?", mangled)
-            name = short.group(1) + (f"<{short.group(2)[1:-1]}>" if short.group(2) else "")
+            short = re.search(r"([a-z_]+_kernel)(I(?:L\w\d+E)+E)?", m.group(1))
+            name = short.group(1)
+            if short.group(2):
+                args = re.findall(r"L(\w)(\d+)E", short.group(2))
+                name += "<" + ",".join(("false", "true")[int(v)] if t == "b" else v
+                                       for t, v in args) + ">"
             out[name] = {}
             continue
         if name is None:
@@ -179,9 +207,11 @@ def ptxas_report(log: str) -> dict:
                 f"stack") for k, v in out.items()}
 
 
-def assert_bits_equal(got, want, what):
-    """All five outputs of two TraceResults equal bit for bit."""
-    for name in ("radiance", "miss_dir", "miss_thr", "ray_count", "seed"):
+def assert_bits_equal(got, want, what,
+                      names=("radiance", "miss_dir", "miss_thr", "ray_count", "seed")):
+    """The outputs ``names`` of two results equal bit for bit (all five of
+    a TraceResult by default)."""
+    for name in names:
         g, w = getattr(got, name), getattr(want, name)
         if g.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
@@ -461,6 +491,16 @@ def grad_phases(dev, card, K, G):
           + ", ".join(f"{k} {v:.3f}" for k, v in effs.items()) + f" ({card})")
     times["kernels"] = per
     return max_err, times
+
+
+def trace_blocks_per_sm():
+    """Blocks per SM of the forward kernel's select, table and environment
+    instantiations, by the occupancy API (the layout entry)."""
+    from tpt_torch.kernels import _build
+    blocks = (ctypes.c_int * 3)()
+    if _build.load_library().tpt_trace_layout(blocks) != 0:
+        raise AssertionError("the trace kernel's layout entry failed")
+    return list(blocks)
 
 
 def grad_blocks_per_sm():
@@ -954,6 +994,11 @@ def main() -> int:
     phase("build", f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(os.path.relpath(p, REPO) for p in paths.values())}; ptxas: "
           + "; ".join(f"{k} {v}" for k, v in ptxas_report(log).items()))
+    per_sm = trace_blocks_per_sm()
+    phase("trace-build", "csrc/trace.cu ptxas: " + "; ".join(
+        f"{k} {v}" for k, v in ptxas_report(
+            paths["trace.cu"].with_suffix(".log").read_text()).items())
+        + "; blocks per SM (select, table, environment): " + ", ".join(map(str, per_sm)))
 
     scene = demo_scene().build(dev)
     cam = CameraConfig()
@@ -976,46 +1021,80 @@ def main() -> int:
             times["per_frame_ms"] = cuda_ms(lambda: K.trace(scene, ip, iv, 5, focal, ap, **kw), 20)
             times["per_frame_plain_ms"] = cuda_ms(
                 lambda: K.trace_plain(scene, ip, iv, 5, focal, ap, **kw), 3)
+            times["per_frame_lane_efficiency"] = G.lane_efficiency(got.ray_count)
             line += (f"; kernel {times['per_frame_ms']:.3f} ms, plain "
-                     f"{times['per_frame_plain_ms']:.1f} ms per frame ({card})")
+                     f"{times['per_frame_plain_ms']:.1f} ms per frame ({card}); lane "
+                     f"efficiency {times['per_frame_lane_efficiency']:.4f}")
         phase("per-frame", line)
 
-    # ---- 4. refill kernel vs plain ----
+    # ---- 4. refill kernel vs plain: the slot mode, then the environment mode ----
+    from tpt_torch.config import AtmosphereConfig
+    from tpt_torch.env import pack_block_table
+    from tpt_torch.sky import compute_atmosphere
+    table = pack_block_table(compute_atmosphere(AtmosphereConfig(size=256), dev))
+    env_out = ("rad_sum", "ray_count", "seed")
     ip, iv, _ = camera_matrices(cam, 256, 256)
     kw = dict(width=256, height=256, ray_depth=DEPTH, spp=1, n_frames=4, n_valid=3)
     got = K.trace_progressive(scene, ip, iv, 7, focal, ap, **kw)
     err_tail = compare_refill(got, K.trace_progressive_plain(scene, ip, iv, 7, focal, ap, **kw))
     if got.miss_dir[3].any() or got.miss_thr[3].any():
         raise AssertionError("slot of the masked frame is not zero")
-    # the launch the main path makes: a 30-frame 1080p block from frame 0
+    got = K.trace_progressive(scene, ip, iv, 7, focal, ap, env_table=table, **kw)
+    assert_bits_equal(got, K.trace_progressive_plain(scene, ip, iv, 7, focal, ap,
+                                                     env_table=table, **kw),
+                      "environment mode at 256^2", env_out)
+    # the launch the main path makes: a 30-frame 1080p block from frame 0, in
+    # the slot mode and in the environment mode
     ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
     kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=BLOCK)
+    got = K.trace_progressive(scene, ip, iv, 0, focal, ap, **kw)
+    err_block = compare_refill(got, K.trace_progressive_plain(scene, ip, iv, 0, focal, ap, **kw))
+    max_err = max(max_err, err_tail, err_block)
+    times["slot_block_ms"] = cuda_ms(
+        lambda: K.trace_progressive(scene, ip, iv, 0, focal, ap, **kw), 3)
+    # the environment changes no decision, so the environment mode's launch
+    # at these inputs looks it up for exactly the slot mode's escapes
+    slot_rays, escapes = got.ray_count, escaped_samples(got.miss_dir)
+    del got
 
     def run():
-        return K.trace_progressive(scene, ip, iv, 0, focal, ap, **kw)
+        return K.trace_progressive(scene, ip, iv, 0, focal, ap, env_table=table, **kw)
 
     def run_plain():
-        return K.trace_progressive_plain(scene, ip, iv, 0, focal, ap, **kw)
+        return K.trace_progressive_plain(scene, ip, iv, 0, focal, ap, env_table=table, **kw)
 
     got = run()
-    err_block = compare_refill(got, run_plain())
-    max_err = max(max_err, err_tail, err_block)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = run_plain()
+    end.record()
+    torch.cuda.synchronize()
+    times["block_plain_ms"] = start.elapsed_time(end)
+    assert_bits_equal(got, want, "environment mode, 1080p block", env_out)
+    del want
+    if not torch.equal(got.ray_count, slot_rays):
+        raise AssertionError("environment mode, 1080p block: ray counts differ from the "
+                             "slot mode's")
     times["block_ms"] = cuda_ms(run, 3)
-    times["block_plain_ms"] = cuda_ms(run_plain, 1, warm_up=False)
-    pixels = WIDTH * HEIGHT
+    pixels, segments = WIDTH * HEIGHT, int(got.ray_count.sum())
     times["bound_ms"], times["bound_by"] = trace_bound(
-        int(got.ray_count.sum()), pixels * BLOCK, pixels, BLOCK, scene.counts)
-    phase("refill", f"256x256 4 frames (n_valid 3): integers exact, max abs err "
-          f"{err_tail:.3g}; {WIDTH}x{HEIGHT} {BLOCK}-frame block: integers exact, max abs "
-          f"err {err_block:.3g} (floats within rtol 1e-3 atol 1e-4); kernel "
-          f"{times['block_ms']:.2f} ms, plain {times['block_plain_ms']:.1f} ms, bound "
-          f"{times['bound_ms']:.3f} ms ({times['bound_by']}, {int(got.ray_count.sum())} "
-          f"segments) ({card})")
+        segments, pixels * BLOCK, pixels, 0, scene.counts,
+        env_bytes=table.numel() * table.element_size(), escapes=escapes)
+    times["lane_efficiency"] = G.lane_efficiency(got.ray_count)
+    phase("refill", f"slot mode: 256x256 4 frames (n_valid 3) and the {WIDTH}x{HEIGHT} "
+          f"{BLOCK}-frame block: integers exact, max abs err {err_tail:.3g} / {err_block:.3g} "
+          f"(floats within rtol 1e-3 atol 1e-4); environment mode (256^2 atmosphere): both "
+          f"bit-equal to the plain version; {WIDTH}x{HEIGHT} {BLOCK}-frame block: environment "
+          f"mode {times['block_ms']:.2f} ms, slot mode {times['slot_block_ms']:.2f} ms, plain "
+          f"{times['block_plain_ms']:.1f} ms, bound {times['bound_ms']:.3f} ms "
+          f"({times['bound_by']}, {segments} segments, {escapes} escapes) ({card})")
+    phase("refill", f"lane efficiency (a warp's segments over 32 x its longest lane's): "
+          f"{WIDTH}x{HEIGHT} frame {times['per_frame_lane_efficiency']:.4f}, {BLOCK}-frame "
+          f"block {times['lane_efficiency']:.4f}")
 
     # ---- 5. golden image through the kernel ----
-    from tpt_torch.config import AtmosphereConfig
     from tpt_torch.kernels.render import progressive_frames, render_fields
-    from tpt_torch.sky import compute_atmosphere
     gip, giv, gpos = camera_matrices(cam, 512, 512)
     img, _ = render_fields(scene, compute_atmosphere(AtmosphereConfig(size=32), dev),
                            gip, giv, gpos, 0, focal, ap, width=512, height=512,
@@ -1034,28 +1113,28 @@ def main() -> int:
     from tpt_torch.progressive import load_checkpoint
     with tempfile.TemporaryDirectory() as tmp:
         png, ckpt = os.path.join(tmp, "smoke.png"), os.path.join(tmp, "smoke.npz")
-        K.LAUNCHES = 0
+        K.LAUNCHES, K.ENV_LAUNCHES = 0, 0
         t0 = time.perf_counter()
         rc = cli.main(["render", "--device", "cuda", "--width", str(WIDTH),
                        "--height", str(HEIGHT), "--frames", str(3 * BLOCK),
                        "--chunk", str(BLOCK), "--out", png, "--checkpoint", ckpt])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = K.LAUNCHES
-        if rc != 0 or launches != 3:
-            raise AssertionError(f"cli render: rc {rc}, {launches} kernel launches (want 3)")
+        launches, env_launches = K.LAUNCHES, K.ENV_LAUNCHES
+        if rc != 0 or launches != 3 or env_launches != 3:
+            raise AssertionError(f"cli render: rc {rc}, {launches} kernel launches, "
+                                 f"{env_launches} in the environment mode (want 3, 3)")
         state = load_checkpoint(ckpt, dev)
         if not (os.path.getsize(png) > 0 and state.frame == 3 * BLOCK
                 and tuple(state.image.shape) == (HEIGHT, WIDTH, 3)
                 and bool(torch.isfinite(state.image).all()) and float(state.image.mean()) > 0):
             raise AssertionError("cli render: bad accumulator or PNG")
     phase("main-path", f"cli render {WIDTH}x{HEIGHT} {3 * BLOCK} frames in {BLOCK}-frame "
-          f"blocks: {launches} kernel launches, {wall:.2f} s wall incl. the atmosphere, "
-          f"accumulator finite, mean {float(state.image.mean()):.4f}")
+          f"blocks: {launches} kernel launches, all in the environment mode, {wall:.2f} s "
+          f"wall incl. the atmosphere, accumulator finite, mean "
+          f"{float(state.image.mean()):.4f}")
 
     # steady state: 3 more blocks of progressive_frames after one warm-up block
-    from tpt_torch.env import pack_block_table
-    table = pack_block_table(compute_atmosphere(AtmosphereConfig(size=256), dev))
     frame = state.frame
 
     def block():
@@ -1068,6 +1147,8 @@ def main() -> int:
 
     block()
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     rays = [block() for _ in range(3)]
@@ -1076,8 +1157,14 @@ def main() -> int:
     ms_block = start.elapsed_time(end) / 3
     segments = int(sum(int(r) for r in rays))
     mrays = segments / (3 * ms_block * 1e-3) / 1e6
+    block_bytes = torch.cuda.max_memory_allocated(dev) - resident
+    slot_bytes = 2 * BLOCK * 3 * WIDTH * HEIGHT * 4
+    if block_bytes >= slot_bytes:
+        raise AssertionError(f"a block allocated {block_bytes} bytes: miss slots are "
+                             f"{slot_bytes}")
     phase("throughput", f"{ms_block:.2f} ms per {BLOCK}-frame block, {mrays:.1f} Mrays/s "
-          f"(traced segments / s) on {card}")
+          f"(traced segments / s) on {card}; a block's peak allocation {block_bytes} bytes "
+          f"above the {resident} resident (the miss slots would be {slot_bytes})")
 
     # the training path first, before torch.profiler first runs (the grad
     # phase's per-kernel times), so its wall clock is taken as it was before
@@ -1089,10 +1176,12 @@ def main() -> int:
     probe_kernels = probe_phases(dev, card)
 
     # one kernel serves both forward TPU kernels (pallas_trace_progressive at
-    # :519 and pallas_trace at :298); its times are those of a 30-frame 1080p
-    # block, its launches those of the render path and the training path.
-    # Its table mode (the one-hot gather) is timed per 1080p frame.  No one
-    # PyTorch call computes a trace or its backward: library_ms is null.
+    # :519 and pallas_trace at :298); its times are those of the render
+    # path's launch, a 30-frame 1080p block in the environment mode, its
+    # launches those of the render path and the training path, its lane
+    # efficiency that of the block.  Its table mode (the one-hot gather) is
+    # timed per 1080p frame.  No one PyTorch call computes a trace or its
+    # backward: library_ms is null.
     print(json.dumps({"kernels": [{
         "name": "trace_progressive_kernel",
         "route": "cuda",
@@ -1105,8 +1194,9 @@ def main() -> int:
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": None,
+        "lane_efficiency": times["lane_efficiency"],
     }, {
-        "name": "trace_progressive_kernel<true> (gather=onehot)",
+        "name": "trace_progressive_kernel<true,false> (gather=onehot)",
         "route": "cuda",
         "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:226",

@@ -162,3 +162,32 @@ def test_primary_ray_vjp_matches_jax(cam_name, jitter):
                               tuple(map(torch.tensor, draws)), jitter)
     np.testing.assert_array_equal(o3.numpy(), o.detach().numpy())
     np.testing.assert_array_equal(d3.numpy(), d.detach().numpy())
+
+
+@pytest.mark.parametrize("field", ["sphere_pos_radius", "cuboid_min", "cuboid_max"])
+def test_trace_diff_refuses_geometry_edited_before_the_backward(field):
+    """trace_diff's backward reads the geometry its forward traced, through
+    save_for_backward: an in-place edit in between raises (autograd's
+    version counter) instead of giving the gradient of another scene."""
+    import dataclasses
+    from tpt_torch import demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.kernels.trace_grad import trace_diff
+
+    cam = CameraConfig()
+    ip, iv, _ = camera_matrices(cam, 8, 6)
+    scene = demo_scene().build()
+    leaf = scene.sphere_material.detach().requires_grad_(True)
+    traced = dataclasses.replace(scene, sphere_material=leaf)
+
+    def forward():
+        return trace_diff(traced, ip, iv, 0, cam.focal_length, cam.aperture_diameter, width=8,
+                          height=6, ray_depth=4, spp=1, counts=scene.counts)
+
+    forward().radiance.sum().backward()
+    assert leaf.grad is not None and bool(leaf.grad.abs().sum() > 0)
+    res = forward()
+    with torch.no_grad():
+        getattr(scene, field)[0] += 0.5
+    with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+        res.radiance.sum().backward()

@@ -8,7 +8,8 @@ Both sides run the same operations in the same order in f32 with no FMA
 contraction (the parity policy of tpt_torch/csrc/trace.cu), so integer
 outputs must match exactly (the per-frame kernel may differ on 0.01% of
 pixels) and floats at 1e-5 (per frame) or rtol 1e-3 / atol 1e-4 (refill,
-the tests/test_refill.py bar)."""
+the tests/test_refill.py bar); the environment mode, the slot modes and the
+table mode are also held bit for bit."""
 
 import pytest
 import torch
@@ -66,14 +67,77 @@ def test_refill_kernel_matches_plain(device):
     assert not got.miss_dir[3:].any() and not got.miss_thr[3:].any()
 
 
+def atmosphere_table(device, size=256):
+    from tpt_torch.config import AtmosphereConfig
+    from tpt_torch.sky import compute_atmosphere
+    return pack_block_table(compute_atmosphere(AtmosphereConfig(size=size), device))
+
+
+def assert_bits(got, want, names):
+    for name in names:
+        g, w = getattr(got, name), getattr(want, name)
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.shape == w.shape and torch.equal(g, w), name
+
+
+ENV_CASES = {
+    "64^2 tail": (64, dict(spp=1, n_frames=4, n_valid=3)),
+    "128^2 spp 2, no rr, center": (128, dict(spp=2, n_frames=3, rr=False, jitter="center")),
+    "128^2 band": (128, dict(spp=1, n_frames=3, n_rows=40, row0=70)),
+}
+
+
+@pytest.mark.parametrize("case", list(ENV_CASES))
+def test_env_kernel_matches_plain_bit_for_bit(device, case):
+    """The environment mode (the block path's launch) against its plain
+    version: rad_sum, ray counts and seeds bit for bit, since both add
+    radiance + throughput x environment per sample in the same order."""
+    size, kw = ENV_CASES[case]
+    args = setup(device, size)
+    table = atmosphere_table(device)
+    kw = dict(kw, width=size, height=size, ray_depth=13)
+    launches = (K.LAUNCHES, K.ENV_LAUNCHES)
+    got = K.trace_progressive(*args[:3], 7, *args[3:], env_table=table, **kw)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES, K.ENV_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    assert got.miss_dir is None and got.miss_thr is None
+    want = K.trace_progressive_plain(*args[:3], 7, *args[3:], env_table=table, **kw)
+    assert_bits(got, want, ("rad_sum", "ray_count", "seed"))
+
+
+def test_slot_modes_stay_bit_equal(device):
+    """The refill loop in the slot mode, per frame and per block, against
+    the plain versions bit for bit in every output."""
+    args = setup(device, 128)
+    kw = dict(width=128, height=128, ray_depth=13)
+    for spp, rr, jitter in ((1, True, "corner"), (2, False, "center")):
+        one = dict(kw, spp=spp, rr=rr, jitter=jitter)
+        assert_bits(K.trace(*args[:3], 5, *args[3:], **one),
+                    K.trace_plain(*args[:3], 5, *args[3:], **one),
+                    ("radiance", "miss_dir", "miss_thr", "ray_count", "seed"))
+    block = dict(kw, spp=1, n_frames=4, n_valid=3)
+    assert_bits(K.trace_progressive(*args[:3], 7, *args[3:], **block),
+                K.trace_progressive_plain(*args[:3], 7, *args[3:], **block),
+                ("rad_sum", "miss_dir", "miss_thr", "ray_count", "seed"))
+
+
 def test_progressive_frames_launches_refill_kernel(device):
-    scene, inv_p, inv_v, focal, ap = setup(device, 64)
+    """A block is one launch, in the environment mode, and allocates no
+    miss slots."""
+    scene, inv_p, inv_v, focal, ap = setup(device, 128)
     table = pack_block_table(constant_environment((0.7, 0.8, 1.0), device=device))
-    launches = K.LAUNCHES
-    acc, rays = progressive_frames(init_accumulator(64, 64, device), scene, table,
-                                   inv_p, inv_v, 0, focal, ap, width=64, height=64,
-                                   ray_depth=13, spp=1, n_frames=5, n_valid=4)
-    assert K.LAUNCHES == launches + 1 and acc.frame == 4 and int(rays) > 4 * 64 * 64
+    acc = init_accumulator(128, 128, device)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    launches = (K.LAUNCHES, K.ENV_LAUNCHES)
+    acc, rays = progressive_frames(acc, scene, table, inv_p, inv_v, 0, focal, ap, width=128,
+                                   height=128, ray_depth=13, spp=1, n_frames=8, n_valid=7)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES, K.ENV_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    assert torch.cuda.max_memory_allocated(device) - resident < 2 * 8 * 3 * 128 * 128 * 4
+    assert acc.frame == 7 and int(rays) > 7 * 128 * 128
     assert torch.isfinite(acc.image).all() and acc.image.mean().item() > 0
 
 
@@ -83,12 +147,29 @@ def test_wrapper_rejects_bad_inputs(device):
     bad.sphere_material = bad.sphere_material.double()
     with pytest.raises(ValueError, match="sphere_material"):
         K.trace(bad, inv_p, inv_v, 0, focal, ap, width=16, height=16, ray_depth=3, spp=1)
+    table = pack_block_table(constant_environment((0.7, 0.8, 1.0), device=device))
+    shifted = torch.empty(table.numel() + 4, device=device)[1:1 + table.numel()].view(table.shape)
+    for t, match in ((shifted, "16-byte"), (table.cpu(), "is on cpu")):
+        with pytest.raises(ValueError, match=match):
+            K.trace_progressive(scene, inv_p, inv_v, 0, focal, ap, width=16, height=16,
+                                ray_depth=3, spp=1, n_frames=2, env_table=t)
+
+
+def test_trace_layout_gives_blocks_per_sm(device):
+    import ctypes
+    from tpt_torch.kernels import _build
+    blocks = (ctypes.c_int * 3)()
+    assert _build.load_library().tpt_trace_layout(blocks) == 0
+    assert all(1 <= b <= 16 for b in blocks), list(blocks)
 
 
 def test_profile_block_splits_the_block(device):
     from tpt_torch.profile_block import profile_blocks
     summary, rows = profile_blocks(64, 64, 3, 1)
     assert summary["trace_kernel_ms_per_block"] > 0 and summary["segments_per_block"] > 0
+    assert summary["fold_ms_per_block"] > 0 and summary["rest_ms_per_block"] >= 0
+    assert "env_gather_ms_per_block" not in summary
+    assert not any("gather" in key.lower() for _, _, key in rows)   # no torch env fetch
     assert 0.0 <= summary["idle_share"] < 1.0 and rows
 
 

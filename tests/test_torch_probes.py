@@ -146,10 +146,11 @@ def test_no_fallback_off_the_cpu():
 
 def test_probes_path_imports_no_jax():
     """The probes' entry point, run on the CPU, chip_smoke.py,
-    probe_turns.py, grad_turns.py and scatter_designs.py import nothing of
-    JAX, the JAX package, benchmarks/ or optax."""
+    probe_turns.py, grad_turns.py, render_turns.py and scatter_designs.py
+    import nothing of JAX, the JAX package, benchmarks/ or optax."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys; import chip_smoke, probe_turns, grad_turns, scatter_designs; "
+    code = ("import sys; import chip_smoke, probe_turns, grad_turns, render_turns, "
+            "scatter_designs; "
             "from tpt_torch import bwd_probes; "
             "assert bwd_probes.main(['p1', 'p6', '--device', 'cpu']) == 0; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

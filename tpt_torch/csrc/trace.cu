@@ -8,11 +8,22 @@
 //     gathers: "select" (masked selects over the scene's rows) and
 //     "onehot" (trace.py:226-264, the winner's row of the f32[128, 24]
 //     attribute table taken by a one-hot [24, 128] x [128, B] product).
-// One transport serves all three; the winner gather is a template
-// parameter (kTable), and each gather has its own C entry point.  The Python
-// wrappers in tpt_torch/kernels/trace.py only name the outputs differently.
+// One transport serves them all.  Two template parameters choose:
+//   * kTable, the winner gather: the scene's rows (select) or the attribute
+//     table (one-hot);
+//   * kEnv, what an escaped path leaves.  Without it (the per-frame path and
+//     trace_diff's forward) the kernel writes each sample's escape direction
+//     and throughput to its miss slots and the caller fetches the
+//     environment.  With it (the block path,
+//     tpt_torch.kernels.render.progressive_frames) the kernel looks the
+//     environment up itself when a path escapes and adds throughput x
+//     environment to the sample's radiance; it writes no slots.  That is the
+//     JAX render path's deferred fetch (tpt/kernels/render.py:110-113) done
+//     in the kernel, its sum taken per sample.
+// Each instantiation has its own C entry point.  The Python wrappers in
+// tpt_torch/kernels/trace.py only name the outputs differently.
 //
-// Design (simple first):
+// Design:
 //   * one thread per pixel of the n_rows x width band, a 1-D grid of
 //     128-thread blocks; px = i % width, py = min(i / width + row0,
 //     height - 1), pixels past the end are masked;
@@ -27,20 +38,32 @@
 //     product only because it has no per-lane gather; a thread reads its
 //     winner's row directly, and gets the same values, so the two modes give
 //     the same bits.  In both, t is the fold's own;
-//   * each thread runs its pixel's samples as a queue: for frame f < n_valid
-//     and sample s < spp it reseeds from pixel_seed(px, py, frame0 + f) at
-//     s == 0 (else chains the running seed), draws the camera sample and
-//     bounces up to ray_depth times.  The random stream is fixed per pixel,
-//     so the results are those of tpt_torch.integrator.progressive_iteration
-//     whatever the scheduling.  Slots of frames >= n_valid are written zero.
+//   * per-lane refill: each thread runs its pixel's (frame, sample) items
+//     for f < n_valid, s < spp as a queue, in one loop of bounces.  In the
+//     iteration in which its path ends, a lane finishes the item (the sum,
+//     the slots) and starts the next: it reseeds from pixel_seed(px, py,
+//     frame0 + f) at s == 0, else chains the running seed, and draws the
+//     camera sample.  A warp so runs until its longest per-pixel total of
+//     segments, where nested sample and bounce loops ran each sample until
+//     the warp's longest path (lane efficiency 0.51 at 1080p, depth 13,
+//     Russian roulette).  tpt_torch.integrator.trace_progressive has the
+//     same schedule.  The random stream is fixed per pixel and a pixel's
+//     sums keep their order, so the results are the plain version's bits.
+//     Slots of frames >= n_valid are written zero;
+//   * the environment lookup (kEnv) repeats
+//     tpt_torch.env.sample_environment_blocked's arithmetic in its order:
+//     GL face selection, an IEEE 1 / max(ma, 1e-30), the bilinear taps and
+//     weights, and three independent 16-byte loads of the tap's 48-byte
+//     pack_block_table row (the table, 19.2 MB for the 256^2 sky, stays in
+//     the 50 MB L2).
 //
 // What bounds it on this card: per-thread FP32 transport maths (a
-// closest-hit scan over every primitive per bounce) and divergence across a
-// warp's path lengths.  Device-memory traffic is small except the
-// 2 * F * spp * 3 floats per pixel of deferred miss slots.
+// closest-hit scan over every primitive per bounce) and the lanes of a warp
+// left idle while others finish their pixel's longer paths.  Device-memory
+// traffic is small except, without kEnv, the 2 * F * spp * 3 floats per
+// pixel of miss slots.
 //
-// Left for later: warp-level refill and compaction of live paths, sampling
-// the environment inline at escape instead of storing miss slots, FMA
+// Left for later: a warp-pooled queue of (pixel, frame) items, FMA
 // contraction, and compile-time primitive counts.
 //
 // Parity policy: see common.cuh.  Every float operation repeats the plain
@@ -117,15 +140,87 @@ struct Path {
   bool alive;
 };
 
+// The environment of kEnv: a tpt_torch.env.pack_block_table table,
+// f32[6 (size + 2)^2, 12] on a 16-byte boundary.  Row (face (S + 2) + y0)
+// (S + 2) + x0 holds the four taps [t00, t01, t10, t11] of the bilinear
+// footprint whose top-left padded texel is (y0, x0), each rgb.
+struct EnvTable {
+  const float* rows;
+  int size;
+};
+
+constexpr float kInvMaFloor = 1e-30f;  // tpt_torch.env._INV_MA_FLOOR
+
+// tpt_torch.env.sample_environment_blocked at one direction:
+// cubemap_face_uv_planar, _bilinear_taps and _lerp2, each rounding in their
+// order (1 - fx is its own rounding; 1.0 / x is torch's reciprocal, an IEEE
+// division).
+__device__ __forceinline__ V3 environment(const EnvTable& env, V3 d) {
+  const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  const bool x_major = ax >= ay && ax >= az;
+  const bool y_major = !x_major && ay >= az;
+  int face;
+  float ma, sc, tc;
+  if (x_major) {
+    face = d.x > 0.0f ? 0 : 1;
+    ma = ax;
+    sc = d.x > 0.0f ? -d.z : d.z;
+    tc = -d.y;
+  } else if (y_major) {
+    face = d.y > 0.0f ? 2 : 3;
+    ma = ay;
+    sc = d.x;
+    tc = d.y > 0.0f ? d.z : -d.z;
+  } else {
+    face = d.z > 0.0f ? 4 : 5;
+    ma = az;
+    sc = d.z > 0.0f ? d.x : -d.x;
+    tc = -d.y;
+  }
+  const float inv_ma = 1.0f / nmax(ma, kInvMaFloor);
+  const float s = 0.5f * (sc * inv_ma + 1.0f);
+  const float t = 0.5f * (tc * inv_ma + 1.0f);
+  const float fsize = static_cast<float>(env.size);
+  const float x = s * fsize - 0.5f;
+  const float y = t * fsize - 0.5f;
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float fx = x - x0f;
+  const float fy = y - y0f;
+  // +1 for the pad ring; x0 + 1 stays <= size + 1
+  const int x0 = min(max(static_cast<int>(x0f), -1), env.size - 1) + 1;
+  const int y0 = min(max(static_cast<int>(y0f), -1), env.size - 1) + 1;
+  const int pad = env.size + 2;
+  const int64_t row = static_cast<int64_t>((face * pad + y0) * pad + x0);
+  const float4* r = reinterpret_cast<const float4*>(env.rows + row * 12);
+  const float4 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2);
+  const float tap[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  float out[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float top = tap[c] * gx + tap[3 + c] * fx;
+    const float bot = tap[6 + c] * gx + tap[9 + c] * fx;
+    out[c] = top * gy + bot * fy;
+  }
+  return make(out[0], out[1], out[2]);
+}
+
 // One bounce of the Radiance loop (compute.glsl:132-182) on a live path;
 // tpt_torch.integrator.bounce_step restricted to its alive lane.
-template <bool kTable>
+// At escape, kEnv adds the environment term as the plain version's flush
+// does, radiance + miss_thr * env(miss_dir); else it defers the fetch.
+template <bool kTable, bool kEnv>
 __device__ __forceinline__ void bounce(const SceneSmem<kTable>& sc, int ns, int nc, bool rr,
-                                       Path& p) {
+                                       const EnvTable& env, Path& p) {
   Hit h = closest_hit(sc.g, ns, nc, p.o, p.d);
-  if (!h.found) {  // escaped: defer the environment fetch
-    p.miss_d = p.d;
-    p.miss_t = p.thr;
+  if (!h.found) {
+    if constexpr (kEnv) {
+      p.rad = p.rad + p.thr * environment(env, p.d);
+    } else {
+      p.miss_d = p.d;
+      p.miss_t = p.thr;
+    }
     p.alive = false;
     return;
   }
@@ -233,15 +328,16 @@ __device__ __forceinline__ void bounce(const SceneSmem<kTable>& sc, int ns, int 
 
 // kTable: read the winners from `table` (the attribute table, f32[128, 24]);
 // else from sphere_material / cuboid_material.  The other pointers of the
-// pair are not read.
-template <bool kTable>
+// pair are not read.  kEnv: `env` is read and miss_dir / miss_thr are not
+// written; else the reverse.
+template <bool kTable, bool kEnv>
 __global__ void __launch_bounds__(kBlock)
 trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
                          const float* __restrict__ sphere_material,
                          const float* __restrict__ cuboid_min,
                          const float* __restrict__ cuboid_max,
                          const float* __restrict__ cuboid_material,
-                         const float* __restrict__ table,
+                         const float* __restrict__ table, EnvTable env,
                          int ns, int nc, Camera cam, int width, int height,
                          int n_rows, int row0, int frame0, int n_frames,
                          int n_valid, int spp, int ray_depth, int jitter_center,
@@ -266,36 +362,55 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
   V3 acc = make(0.0f, 0.0f, 0.0f);
   int32_t rays = 0;
   uint32_t seed = 0;
-  for (int f = 0; f < n_valid; ++f) {
-    for (int s = 0; s < spp; ++s) {
-      if (s == 0) seed = pixel_seed(px, py, static_cast<uint32_t>(frame0 + f));
-      const Draws w = sample_draws(seed);
-      Path p;
-      primary_ray(cam, fpx, fpy, fw, fh, jitter_center != 0, w, p.o, p.d);
-      p.thr = make(1.0f, 1.0f, 1.0f);
-      p.rad = make(0.0f, 0.0f, 0.0f);
-      p.miss_d = make(0.0f, 0.0f, 0.0f);
-      p.miss_t = make(0.0f, 0.0f, 0.0f);
-      p.seed = seed;
-      p.alive = true;
-      for (int b = 0; b < ray_depth && p.alive; ++b) {
-        ++rays;
-        bounce<kTable>(sc, ns, nc, rr != 0, p);
-      }
+  int f = 0, s = 0, b = 0;  // the lane's item, sample s of frame f, and its bounces so far
+  Path p;
+  // Start item (f, s): a frame's first sample reseeds from the pixel hash,
+  // later samples chain the running seed.
+  auto start = [&]() {
+    if (s == 0) seed = pixel_seed(px, py, static_cast<uint32_t>(frame0 + f));
+    const Draws w = sample_draws(seed);
+    primary_ray(cam, fpx, fpy, fw, fh, jitter_center != 0, w, p.o, p.d);
+    p.thr = make(1.0f, 1.0f, 1.0f);
+    p.rad = make(0.0f, 0.0f, 0.0f);
+    p.miss_d = make(0.0f, 0.0f, 0.0f);
+    p.miss_t = make(0.0f, 0.0f, 0.0f);
+    p.seed = seed;
+    p.alive = true;
+    b = 0;
+  };
+  bool busy = n_valid > 0;
+  if (busy) start();
+  while (busy) {
+    if (b < ray_depth) {
+      ++rays;
+      bounce<kTable, kEnv>(sc, ns, nc, rr != 0, env, p);
+      ++b;
+    }
+    if (!p.alive || b >= ray_depth) {  // the item ends: its sums, its slots, the next item
       seed = p.seed;
       acc = acc + p.rad;
-      const int64_t slot = static_cast<int64_t>(f) * spp + s;
-      float* md = miss_dir + slot * 3 * npix + i;
-      float* mt = miss_thr + slot * 3 * npix + i;
-      md[0] = p.miss_d.x; md[npix] = p.miss_d.y; md[2 * npix] = p.miss_d.z;
-      mt[0] = p.miss_t.x; mt[npix] = p.miss_t.y; mt[2 * npix] = p.miss_t.z;
+      if constexpr (!kEnv) {
+        const int64_t slot = static_cast<int64_t>(f) * spp + s;
+        float* md = miss_dir + slot * 3 * npix + i;
+        float* mt = miss_thr + slot * 3 * npix + i;
+        md[0] = p.miss_d.x; md[npix] = p.miss_d.y; md[2 * npix] = p.miss_d.z;
+        mt[0] = p.miss_t.x; mt[npix] = p.miss_t.y; mt[2 * npix] = p.miss_t.z;
+      }
+      if (++s == spp) {
+        s = 0;
+        ++f;
+      }
+      busy = f < n_valid;
+      if (busy) start();
     }
   }
-  for (int64_t slot = static_cast<int64_t>(n_valid) * spp;
-       slot < static_cast<int64_t>(n_frames) * spp; ++slot) {
-    for (int c = 0; c < 3; ++c) {
-      miss_dir[(slot * 3 + c) * npix + i] = 0.0f;
-      miss_thr[(slot * 3 + c) * npix + i] = 0.0f;
+  if constexpr (!kEnv) {
+    for (int64_t slot = static_cast<int64_t>(n_valid) * spp;
+         slot < static_cast<int64_t>(n_frames) * spp; ++slot) {
+      for (int c = 0; c < 3; ++c) {
+        miss_dir[(slot * 3 + c) * npix + i] = 0.0f;
+        miss_thr[(slot * 3 + c) * npix + i] = 0.0f;
+      }
     }
   }
   rad_sum[i] = acc.x;
@@ -305,19 +420,22 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
   seed_out[i] = static_cast<int64_t>(seed);
 }
 
-// The host side of both entry points: the camera from host memory, the
+// The host side of the entry points: the camera from host memory, the
 // checks, the launch.
-template <bool kTable>
+template <bool kTable, bool kEnv>
 int launch(const float* sphere_pos_radius, const float* sphere_material,
            const float* cuboid_min, const float* cuboid_max, const float* cuboid_material,
-           const float* table, int num_spheres, int num_cuboids, const float* camera_host,
-           int width, int height, int n_rows, int row0, int frame0, int n_frames, int n_valid,
-           int spp, int ray_depth, int jitter_center, int russian_roulette, float* rad_sum,
-           float* miss_dir, float* miss_thr, int32_t* ray_count, int64_t* seed, void* stream) {
+           const float* table, EnvTable env, int num_spheres, int num_cuboids,
+           const float* camera_host, int width, int height, int n_rows, int row0, int frame0,
+           int n_frames, int n_valid, int spp, int ray_depth, int jitter_center,
+           int russian_roulette, float* rad_sum, float* miss_dir, float* miss_thr,
+           int32_t* ray_count, int64_t* seed, void* stream) {
   if (num_spheres < 0 || num_spheres > kMaxSpheres || num_cuboids < 0 ||
       num_cuboids > kMaxCuboids || (kTable && num_spheres + num_cuboids > kAttrRows) ||
       width <= 0 || height <= 0 || n_rows <= 0 || n_frames < 0 || n_valid < 0 ||
-      n_valid > n_frames || spp <= 0 || ray_depth < 0) {
+      n_valid > n_frames || spp <= 0 || ray_depth < 0 ||
+      (kEnv && (env.rows == nullptr || env.size < 1 ||
+                reinterpret_cast<uintptr_t>(env.rows) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* c = camera_host;
@@ -329,11 +447,12 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
 
   const int64_t npix = static_cast<int64_t>(n_rows) * width;
   const unsigned blocks = static_cast<unsigned>((npix + kBlock - 1) / kBlock);
-  trace_progressive_kernel<kTable><<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      sphere_pos_radius, sphere_material, cuboid_min, cuboid_max, cuboid_material, table,
-      num_spheres, num_cuboids, cam, width, height, n_rows, row0, frame0, n_frames, n_valid,
-      spp, ray_depth, jitter_center, russian_roulette, rad_sum, miss_dir, miss_thr, ray_count,
-      seed);
+  trace_progressive_kernel<kTable, kEnv>
+      <<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          sphere_pos_radius, sphere_material, cuboid_min, cuboid_max, cuboid_material, table,
+          env, num_spheres, num_cuboids, cam, width, height, n_rows, row0, frame0, n_frames,
+          n_valid, spp, ray_depth, jitter_center, russian_roulette, rad_sum, miss_dir, miss_thr,
+          ray_count, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,8 +466,8 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
 // holding uint32 values.  Each launches on `stream` and returns
 // cudaGetLastError().
 
-// The select gather, n_frames progressive frames (pallas_trace_progressive,
-// and pallas_trace at n_frames = 1).
+// The select gather, n_frames progressive frames with their miss slots
+// (pallas_trace_progressive, and pallas_trace at n_frames = 1).
 extern "C" int tpt_trace_progressive(
     const float* sphere_pos_radius, const float* sphere_material,
     const float* cuboid_min, const float* cuboid_max, const float* cuboid_material,
@@ -357,11 +476,32 @@ extern "C" int tpt_trace_progressive(
     int spp, int ray_depth, int jitter_center, int russian_roulette,
     float* rad_sum, float* miss_dir, float* miss_thr, int32_t* ray_count,
     int64_t* seed, void* stream) {
-  return launch<false>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
-                       cuboid_material, nullptr, num_spheres, num_cuboids, camera_host, width,
-                       height, n_rows, row0, frame0, n_frames, n_valid, spp, ray_depth,
-                       jitter_center, russian_roulette, rad_sum, miss_dir, miss_thr, ray_count,
-                       seed, stream);
+  return launch<false, false>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
+                              cuboid_material, nullptr, EnvTable{nullptr, 0}, num_spheres,
+                              num_cuboids, camera_host, width, height, n_rows, row0, frame0,
+                              n_frames, n_valid, spp, ray_depth, jitter_center,
+                              russian_roulette, rad_sum, miss_dir, miss_thr, ray_count, seed,
+                              stream);
+}
+
+// The select gather with the environment fetched at escape: n_frames
+// progressive frames, rad_sum holding the environment term, no miss slots.
+// env_table: the device buffer f32[6 (env_size + 2)^2, 12] of
+// tpt_torch.env.pack_block_table, on a 16-byte boundary.
+extern "C" int tpt_trace_progressive_env(
+    const float* sphere_pos_radius, const float* sphere_material,
+    const float* cuboid_min, const float* cuboid_max, const float* cuboid_material,
+    int num_spheres, int num_cuboids, const float* camera_host, int width,
+    int height, int n_rows, int row0, int frame0, int n_frames, int n_valid,
+    int spp, int ray_depth, int jitter_center, int russian_roulette,
+    const float* env_table, int env_size, float* rad_sum, int32_t* ray_count,
+    int64_t* seed, void* stream) {
+  return launch<false, true>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
+                             cuboid_material, nullptr, EnvTable{env_table, env_size},
+                             num_spheres, num_cuboids, camera_host, width, height, n_rows, row0,
+                             frame0, n_frames, n_valid, spp, ray_depth, jitter_center,
+                             russian_roulette, rad_sum, nullptr, nullptr, ray_count, seed,
+                             stream);
 }
 
 // The one-hot gather's table mode, one frame (pallas_trace, gather="onehot"):
@@ -373,8 +513,24 @@ extern "C" int tpt_trace_onehot(
     int width, int height, int n_rows, int row0, int frame, int spp, int ray_depth,
     int jitter_center, int russian_roulette, float* radiance, float* miss_dir,
     float* miss_thr, int32_t* ray_count, int64_t* seed, void* stream) {
-  return launch<true>(sphere_pos_radius, nullptr, cuboid_min, cuboid_max, nullptr, table,
-                      num_spheres, num_cuboids, camera_host, width, height, n_rows, row0,
-                      frame, 1, 1, spp, ray_depth, jitter_center, russian_roulette, radiance,
-                      miss_dir, miss_thr, ray_count, seed, stream);
+  return launch<true, false>(sphere_pos_radius, nullptr, cuboid_min, cuboid_max, nullptr, table,
+                             EnvTable{nullptr, 0}, num_spheres, num_cuboids, camera_host, width,
+                             height, n_rows, row0, frame, 1, 1, spp, ray_depth, jitter_center,
+                             russian_roulette, radiance, miss_dir, miss_thr, ray_count, seed,
+                             stream);
+}
+
+// out: the blocks per SM that cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// gives each instantiation at its launch bound, [select, one-hot table,
+// environment] (no launch).
+extern "C" int tpt_trace_layout(int* blocks_per_sm) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks_per_sm[0], trace_progressive_kernel<false, false>, kBlock, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm[1], trace_progressive_kernel<true, false>, kBlock, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm[2], trace_progressive_kernel<false, true>, kBlock, 0);
+  return static_cast<int>(err);
 }

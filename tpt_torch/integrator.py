@@ -539,8 +539,10 @@ def trace_paths(trace_fn: TraceFn, cam: CameraParams,
 
 class ProgressiveTraceResult(NamedTuple):
     rad_sum: torch.Tensor     # f32[3, *B]          emission radiance SUMMED over all frames
-    miss_dir: torch.Tensor    # f32[F*spp, 3, *B]   escape dir per (frame, sample) slot
-    miss_thr: torch.Tensor    # f32[F*spp, 3, *B]   throughput at escape per slot
+    #                           (the environment term too, when traced with an env table)
+    miss_dir: torch.Tensor | None  # f32[F*spp, 3, *B] escape dir per (frame, sample) slot;
+    #                                None when traced with an env table
+    miss_thr: torch.Tensor | None  # f32[F*spp, 3, *B] throughput at escape per slot (or None)
     ray_count: torch.Tensor   # i32[*B]             traced segments, all frames
     seed: torch.Tensor        # i64[*B]             RNG state after the last finished sample
 
@@ -549,7 +551,8 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
                       px, py, width: int, height: int, frame0,
                       ray_depth: int, spp: int, n_frames: int,
                       n_valid: int | None = None, jitter: str = "corner",
-                      russian_roulette: bool = True) -> ProgressiveTraceResult:
+                      russian_roulette: bool = True,
+                      env_table: torch.Tensor | None = None) -> ProgressiveTraceResult:
     """Path-regeneration ("refill") sampling loop over ``n_frames``
     progressive frames: each lane treats its pixel's samples for
     ``n_frames`` consecutive frames as a queue, starting the next sample the
@@ -561,6 +564,13 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
     slot ``f*spp + s`` of ``miss_dir``/``miss_thr`` holds frame
     ``frame0 + f``'s sample ``s``.  Frames ``f >= n_valid`` are skipped
     (their slots stay zero).  The loop stops once no lane has work.
+
+    With ``env_table`` (a tpt_torch.env.pack_block_table table) a finished
+    sample flushes ``radiance + miss_thr * sample_environment_blocked(
+    env_table, miss_dir)`` instead, and no slots are kept (``miss_dir`` and
+    ``miss_thr`` are None): the plain version of the trace kernel's
+    environment mode.  A sample that did not escape adds ``radiance + 0``,
+    since the zero direction's lookup is finite.
     """
     _check_jitter(jitter)
     if n_valid is None:
@@ -582,11 +592,13 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
     lane_sample = zero_i
     lane_bounce = zero_i
     rad_sum = zero_v3
-    miss_dir = torch.zeros((n_slots, 3) + batch, dtype=torch.float32, device=dev)
-    miss_thr = torch.zeros_like(miss_dir)
+    miss_dir = miss_thr = None
+    if env_table is None:
+        miss_dir = torch.zeros((n_slots, 3) + batch, dtype=torch.float32, device=dev)
+        miss_thr = torch.zeros_like(miss_dir)
+        flat_dir = miss_dir.view(n_slots, 3, -1)
+        flat_thr = miss_thr.view(n_slots, 3, -1)
     out_seed = zero_i.to(torch.int64)
-    flat_dir = miss_dir.view(n_slots, 3, -1)
-    flat_thr = miss_thr.view(n_slots, 3, -1)
 
     for _ in range(n_frames * spp * ray_depth):
         if not bool((lane_frame < n_valid).any()):
@@ -596,12 +608,16 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
                 trace_fn, cam, px, py, fpx, fpy, width, height, frame0,
                 ray_depth, spp, n_valid, jitter, russian_roulette,
                 state, lane_frame, lane_sample, lane_bounce)
-        # ---- flush completed samples into their slots ----
-        rad_sum = rad_sum + torch.where(done, state.radiance, 0.0)
-        lanes = done.reshape(-1).nonzero().squeeze(1)
-        slots = slot.reshape(-1)[lanes].long()
-        flat_dir[slots, :, lanes] = state.miss_dir.reshape(3, -1)[:, lanes].T
-        flat_thr[slots, :, lanes] = state.miss_thr.reshape(3, -1)[:, lanes].T
+        # ---- flush completed samples into the sum and their slots ----
+        if env_table is not None:
+            envc = sample_environment_blocked(env_table, state.miss_dir)
+            rad_sum = rad_sum + torch.where(done, state.radiance + state.miss_thr * envc, 0.0)
+        else:
+            rad_sum = rad_sum + torch.where(done, state.radiance, 0.0)
+            lanes = done.reshape(-1).nonzero().squeeze(1)
+            slots = slot.reshape(-1)[lanes].long()
+            flat_dir[slots, :, lanes] = state.miss_dir.reshape(3, -1)[:, lanes].T
+            flat_thr[slots, :, lanes] = state.miss_thr.reshape(3, -1)[:, lanes].T
         out_seed = torch.where(done, state.seed, out_seed)
 
     return ProgressiveTraceResult(rad_sum=rad_sum, miss_dir=miss_dir,

@@ -1,10 +1,13 @@
 """Frame renderer on the kernel path: trace kernel + environment fetch +
 accumulator fold (port of tpt.kernels.render).
 
-The environment fetch and the block fold are plain torch ops, as they are
-plain XLA in the JAX package; the transport is tpt_torch.kernels.trace,
-which launches the CUDA kernel for a scene on a CUDA device and runs the
-plain integrator for a scene on the CPU.
+The transport is tpt_torch.kernels.trace, which launches the CUDA kernel
+for a scene on a CUDA device and runs the plain integrator for a scene on
+the CPU.  On the block path (``progressive_frames`` with ``n_frames > 1``)
+the kernel also fetches the environment, when a path escapes; the
+per-frame path fetches it with plain torch ops from the kernel's miss
+slots, as the JAX package does with plain XLA.  The block fold is plain
+torch ops.
 """
 
 from __future__ import annotations
@@ -16,7 +19,6 @@ import torch
 
 from ..camera import camera_matrices
 from ..config import CameraConfig, RenderConfig
-from ..env import sample_environment_blocked
 from ..integrator import apply_environment, apply_environment_blocked
 from ..progressive import AccumulatorState
 from ..vecmath import div_scalar
@@ -58,11 +60,14 @@ def progressive_frames(accum: AccumulatorState, scene, env_table,
     """Fold ``n_frames`` consecutive progressive frames into the accumulator,
     updating ``accum.image`` in place.  Returns (accum, traced segments).
 
-    * ``n_frames > 1``: one launch of the refill kernel traces the whole
-      block; the env fetch runs once per (frame, sample) slot of the valid
-      frames, and the block folds in as one running-mean step
+    * ``n_frames > 1``: one launch of the refill kernel in its environment
+      mode traces the whole block and adds each sample's environment term as
+      the sample ends, and the block folds in as one running-mean step
       ``acc' = (n0*acc + sum_f frame_f) / max(n0 + F, 1)``
-      (tpt/kernels/render.py:110-119, same operation order).
+      (tpt/kernels/render.py:110-119, same operation order).  The JAX
+      package sums the emission radiance first and then the slots' terms
+      in slot order; this sums them sample by sample, so the two differ in
+      the last bits of the sum only.
     * ``n_frames == 1``: one launch of the per-frame kernel, the blocked env
       fetch and the reference's per-frame mix ``acc + (mean - acc) / (n + 1)``.
 
@@ -78,12 +83,8 @@ def progressive_frames(accum: AccumulatorState, scene, env_table,
     if n_frames > 1:
         res = trace_progressive(scene, inv_proj, inv_view, frame0, focal_length,
                                 aperture_diameter, n_frames=n_frames, n_valid=n_valid,
-                                **kwargs)
-        total = res.rad_sum
-        for k in range(n_valid * spp):   # slots of skipped frames hold zero
-            envc = sample_environment_blocked(env_table, res.miss_dir[k])
-            total = total + res.miss_thr[k] * envc
-        total = div_scalar(torch.movedim(total, 0, -1), spp)
+                                env_table=env_table, **kwargs)
+        total = div_scalar(torch.movedim(res.rad_sum, 0, -1), spp)
         n0 = np.float32(accum.frame)
         denom = max(n0 + np.float32(n_valid), np.float32(1.0))
         accum.image.mul_(float(n0)).add_(total).div_(

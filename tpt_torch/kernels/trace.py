@@ -4,7 +4,11 @@ One CUDA kernel (tpt_torch/csrc/trace.cu) replaces the TPU kernels of the
 JAX package's forward trace:
 
   * :func:`trace_progressive` — tpt.kernels.trace.pallas_trace_progressive,
-    the refill kernel: ``n_frames`` progressive frames in one launch;
+    the refill kernel: ``n_frames`` progressive frames in one launch.  With
+    ``env_table`` (a tpt_torch.env.pack_block_table table) it launches the
+    kernel's environment mode, which looks the environment up when a path
+    escapes and adds it to ``rad_sum``, and writes no miss slots: the block
+    path of tpt_torch.kernels.render.progressive_frames;
   * :func:`trace` — tpt.kernels.trace.pallas_trace, one frame; the same
     kernel at ``n_frames=1`` with the outputs renamed.  Both of its winner
     gathers are ported: ``gather="select"`` (the default) reads the
@@ -19,7 +23,8 @@ Dispatch follows the tensors: for a scene on the CPU the wrappers run
 CUDA device they launch the kernel or raise.  There is no fallback from
 the device to the plain version.  ``LAUNCHES`` counts kernel launches, so
 a run can show that its main path went through the kernel;
-``ONEHOT_LAUNCHES`` counts those of them made in the table mode.
+``ONEHOT_LAUNCHES`` and ``ENV_LAUNCHES`` count those of them made in the
+table mode and in the environment mode.
 
 Keyword arguments are those of the JAX wrappers.  ``counts`` (static
 primitive counts there) is accepted and bounds the scan like the scene's
@@ -35,6 +40,7 @@ from typing import Tuple
 import torch
 
 from ..config import MAX_CUBOIDS, MAX_SPHERES
+from ..env import env_size_from_table
 from ..integrator import (ATTR_ROWS, ProgressiveTraceResult, TraceResult, build_attr_table,
                           camera_params, make_onehot_gather_trace_fn, make_scene_scan_fn,
                           make_scene_trace_fn, trace_paths)
@@ -42,6 +48,7 @@ from ..integrator import trace_progressive as _integrator_trace_progressive
 
 LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
+ENV_LAUNCHES = 0
 GATHERS = ("select", "onehot")
 
 _SCENE_SHAPES = {
@@ -68,6 +75,23 @@ def _check_gather(gather: str, counts):
         raise ValueError(f"gather must be 'select' or 'onehot', got {gather!r}")
     if gather == "onehot" and counts is None:
         raise ValueError("gather='onehot' requires static counts")
+
+
+def _check_env_table(env_table, device) -> int:
+    """The face size S of a pack_block_table table, or ValueError unless it
+    is a contiguous f32[6 (S + 2)^2, 12] on ``device`` on a 16-byte
+    boundary (the kernel reads each 48-byte row as three 16-byte loads)."""
+    t = env_table
+    size = env_size_from_table(t) if t.dim() == 2 and t.shape[0] >= 6 else 0
+    if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 12 or size < 1
+            or t.shape[0] != 6 * (size + 2) ** 2 or not t.is_contiguous()):
+        raise ValueError(f"env_table must be a contiguous f32[6 (S + 2)^2, 12] "
+                         f"(pack_block_table), got {t.dtype}{list(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"env_table is on {t.device}, the scene on {device}")
+    if t.data_ptr() % 16 != 0:
+        raise ValueError("env_table must start on a 16-byte boundary")
+    return size
 
 
 def pixel_band(width: int, height: int, n_rows: int, row0: int, device):
@@ -108,18 +132,22 @@ def trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
                             n_valid: int | None = None,
                             counts: Tuple[int, int] | None = None,
                             n_rows: int | None = None, row0: int = 0,
-                            jitter: str = "corner",
-                            rr: bool = True) -> ProgressiveTraceResult:
+                            jitter: str = "corner", rr: bool = True,
+                            env_table: torch.Tensor | None = None) -> ProgressiveTraceResult:
     """Plain version of :func:`trace_progressive`: the lane-queue loop of
-    tpt_torch.integrator.trace_progressive over the pixel band."""
+    tpt_torch.integrator.trace_progressive over the pixel band, with the
+    environment added at each sample's end when ``env_table`` is given."""
     n_valid = n_frames if n_valid is None else int(n_valid)
     _check_args(jitter, spp, ray_depth, n_frames, n_valid)
+    if env_table is not None:
+        _check_env_table(env_table, scene.device)
     n_rows = height if n_rows is None else n_rows
     px, py = pixel_band(width, height, n_rows, row0, scene.device)
     cam = camera_params(inv_proj, inv_view, focal_length, aperture_diameter)
     return _integrator_trace_progressive(
         make_scene_trace_fn(scene, counts), cam, px, py, width, height, int(frame0),
-        ray_depth, spp, n_frames, n_valid=n_valid, jitter=jitter, russian_roulette=rr)
+        ray_depth, spp, n_frames, n_valid=n_valid, jitter=jitter, russian_roulette=rr,
+        env_table=env_table)
 
 
 def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch.Tensor:
@@ -134,8 +162,8 @@ def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch
 
 def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, *,
             width, height, ray_depth, spp, n_frames, n_valid, counts, n_rows, row0,
-            jitter, rr, gather="select") -> ProgressiveTraceResult:
-    global LAUNCHES, ONEHOT_LAUNCHES
+            jitter, rr, gather="select", env_table=None) -> ProgressiveTraceResult:
+    global LAUNCHES, ONEHOT_LAUNCHES, ENV_LAUNCHES
     from ._build import load_library
 
     device = scene.device
@@ -157,40 +185,52 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
             raise ValueError(f"the attribute table holds <= {ATTR_ROWS} primitives, "
                              f"got {ns}+{nc}")
         table = build_attr_table(scene, (ns, nc)).detach().contiguous()
+    if env_table is not None:
+        env_size = _check_env_table(env_table, device)
 
-    n_slots = n_frames * spp
     f32 = dict(dtype=torch.float32, device=device)
     rad_sum = torch.empty((3, n_rows, width), **f32)
-    miss_dir = torch.empty((n_slots, 3, n_rows, width), **f32)
-    miss_thr = torch.empty((n_slots, 3, n_rows, width), **f32)
     ray_count = torch.empty((n_rows, width), dtype=torch.int32, device=device)
     seed = torch.empty((n_rows, width), dtype=torch.int64, device=device)
+    miss_dir = miss_thr = None
+    if env_table is None:
+        miss_dir = torch.empty((n_frames * spp, 3, n_rows, width), **f32)
+        miss_thr = torch.empty_like(miss_dir)
     cam = _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter)
 
     lib = load_library()
-    outs = (rad_sum.data_ptr(), miss_dir.data_ptr(), miss_thr.data_ptr(),
-            ray_count.data_ptr(), seed.data_ptr())
+    scene_ptrs = (scene.sphere_pos_radius.data_ptr(), scene.sphere_material.data_ptr(),
+                  scene.cuboid_min.data_ptr(), scene.cuboid_max.data_ptr(),
+                  scene.cuboid_material.data_ptr())
+    band = (width, height, n_rows, int(row0), int(frame0), n_frames, n_valid, spp, ray_depth,
+            int(jitter == "center"), int(bool(rr)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if gather == "onehot":
+        if env_table is not None:
+            entry = "tpt_trace_progressive_env"
+            err = lib.tpt_trace_progressive_env(
+                *scene_ptrs, ns, nc, cam.data_ptr(), *band, env_table.data_ptr(), env_size,
+                rad_sum.data_ptr(), ray_count.data_ptr(), seed.data_ptr(), stream)
+        elif gather == "onehot":
             entry = "tpt_trace_onehot"
             err = lib.tpt_trace_onehot(
                 scene.sphere_pos_radius.data_ptr(), scene.cuboid_min.data_ptr(),
                 scene.cuboid_max.data_ptr(), table.data_ptr(), ns, nc, cam.data_ptr(),
                 width, height, n_rows, int(row0), int(frame0), spp, ray_depth,
-                int(jitter == "center"), int(bool(rr)), *outs, stream)
+                int(jitter == "center"), int(bool(rr)), rad_sum.data_ptr(),
+                miss_dir.data_ptr(), miss_thr.data_ptr(), ray_count.data_ptr(),
+                seed.data_ptr(), stream)
         else:
             entry = "tpt_trace_progressive"
             err = lib.tpt_trace_progressive(
-                scene.sphere_pos_radius.data_ptr(), scene.sphere_material.data_ptr(),
-                scene.cuboid_min.data_ptr(), scene.cuboid_max.data_ptr(),
-                scene.cuboid_material.data_ptr(), ns, nc, cam.data_ptr(),
-                width, height, n_rows, int(row0), int(frame0), n_frames, n_valid, spp,
-                ray_depth, int(jitter == "center"), int(bool(rr)), *outs, stream)
+                *scene_ptrs, ns, nc, cam.data_ptr(), *band, rad_sum.data_ptr(),
+                miss_dir.data_ptr(), miss_thr.data_ptr(), ray_count.data_ptr(),
+                seed.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES += 1
     ONEHOT_LAUNCHES += int(gather == "onehot")
+    ENV_LAUNCHES += int(env_table is not None)
     return ProgressiveTraceResult(rad_sum=rad_sum, miss_dir=miss_dir, miss_thr=miss_thr,
                                   ray_count=ray_count, seed=seed)
 
@@ -199,17 +239,24 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
                       *, width: int, height: int, ray_depth: int, spp: int,
                       n_frames: int, n_valid: int | None = None,
                       counts: Tuple[int, int] | None = None, n_rows: int | None = None,
-                      row0: int = 0, jitter: str = "corner",
-                      rr: bool = True) -> ProgressiveTraceResult:
+                      row0: int = 0, jitter: str = "corner", rr: bool = True,
+                      env_table: torch.Tensor | None = None) -> ProgressiveTraceResult:
     """Trace ``n_frames`` consecutive progressive frames in one launch
     (counterpart of pallas_trace_progressive).
 
     Returns rad_sum f32[3, n_rows, width], miss_dir / miss_thr
     f32[n_frames*spp, 3, n_rows, width], ray_count i32 and seed i64
     [n_rows, width].  Frames ``>= n_valid`` are skipped and their slots are
-    zero.  Row-band mode: ``n_rows`` rows from traced row ``row0``."""
+    zero.  Row-band mode: ``n_rows`` rows from traced row ``row0``.
+
+    ``env_table``: a contiguous pack_block_table table on the scene's
+    device, on a 16-byte boundary (else ``ValueError``).  Each sample then
+    adds ``radiance + miss_thr * sample_environment_blocked(env_table,
+    miss_dir)`` to ``rad_sum`` when it ends, and miss_dir / miss_thr are
+    None."""
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
-                  n_frames=n_frames, counts=counts, row0=row0, jitter=jitter, rr=rr)
+                  n_frames=n_frames, counts=counts, row0=row0, jitter=jitter, rr=rr,
+                  env_table=env_table)
     if scene.device.type == "cpu":
         return trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
                                        aperture_diameter, n_valid=n_valid,

@@ -383,6 +383,9 @@ def trace_grad(scene, table, cam20, frame, g_rad, g_missd, g_misst, *,
                    half_stores=half_stores, ablate=ablate)
 
 
+_GEOMETRY = ("sphere_pos_radius", "cuboid_min", "cuboid_max")   # what the fold reads
+
+
 class _TraceDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, cam20, scene, inv_proj, inv_view, frame, focal_length,
@@ -391,15 +394,19 @@ class _TraceDiff(torch.autograd.Function):
                     width=cfg["width"], height=cfg["height"], ray_depth=cfg["ray_depth"],
                     spp=cfg["spp"], counts=cfg["counts"], n_rows=cfg["n_rows"],
                     row0=cfg["row0"], jitter=cfg["jitter"], rr=cfg["rr"])
-        ctx.save_for_backward(table, cam20)
+        # the geometry too goes through save_for_backward, so that an in-place
+        # edit of it before the backward raises instead of giving a wrong
+        # gradient
+        ctx.save_for_backward(table, cam20, *(getattr(scene, n) for n in _GEOMETRY))
         ctx.scene, ctx.frame, ctx.cfg = scene, frame, cfg
         ctx.mark_non_differentiable(res.ray_count, res.seed)
         return res.radiance, res.miss_dir, res.miss_thr, res.ray_count, res.seed
 
     @staticmethod
     def backward(ctx, g_rad, g_missd, g_misst, _g_rays, _g_seed):
-        table, cam20 = ctx.saved_tensors
-        out = trace_grad(ctx.scene, table, cam20, ctx.frame, g_rad.contiguous(),
+        table, cam20, *geometry = ctx.saved_tensors
+        scene = dataclasses.replace(ctx.scene, **dict(zip(_GEOMETRY, geometry)))
+        out = trace_grad(scene, table, cam20, ctx.frame, g_rad.contiguous(),
                          g_missd.contiguous(), g_misst.contiguous(), **ctx.cfg)
         global LAST_ZEROED
         LAST_ZEROED = out.n_zeroed

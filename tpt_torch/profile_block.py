@@ -5,11 +5,11 @@ Renders the demo scene with the 256^2 atmosphere through
 tpt_torch.kernels.render.progressive_frames at the main path's size
 (1920x1080, 30-frame blocks): one warm-up block, then two blocks under
 torch.profiler (CPU and CUDA activities), the window timed with CUDA
-events.  Device time is split into the trace kernel, the environment's row
-gathers and the rest (the environment maths, the block fold, copies), each
-per block; the idle share is the part of the window in which no CUDA
-kernel ran.  Prints the card's name and power limit, one JSON line, and
-the device kernels by total time.
+events.  Device time is split into the trace kernel (which fetches the
+environment itself), the block fold (its elementwise kernels) and the rest
+(the ray count's sum, copies), each per block; the idle share is the part
+of the window in which no CUDA kernel ran.  Prints the card's name and
+power limit, one JSON line, and the device kernels by total time.
 
 ``--train`` profiles the training step of benchmarks/train_bench.py instead
 (1920x1080, ray depth 13, 1 spp, Russian roulette on, loss
@@ -82,14 +82,14 @@ def profile_blocks(width: int, height: int, n_frames: int, n_blocks: int):
                   reverse=True)
     busy = sum(r[0] for r in rows)
     trace = sum(r[0] for r in rows if "trace_progressive_kernel" in r[2])
-    gather = sum(r[0] for r in rows if "gather" in r[2].lower())
+    fold = sum(r[0] for r in rows if "elementwise" in r[2])
     segments = sum(int(r) for r in rays)
     summary = {
         "width": width, "height": height, "frames_per_block": n_frames, "blocks": n_blocks,
         "window_ms_per_block": window_ms / n_blocks,
         "trace_kernel_ms_per_block": trace / n_blocks,
-        "env_gather_ms_per_block": gather / n_blocks,
-        "rest_ms_per_block": (busy - trace - gather) / n_blocks,
+        "fold_ms_per_block": fold / n_blocks,
+        "rest_ms_per_block": (busy - trace - fold) / n_blocks,
         "idle_share": 1.0 - busy / window_ms,
         "segments_per_block": segments / n_blocks,
         "mrays_per_s": segments / (window_ms * 1e-3) / 1e6,
