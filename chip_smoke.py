@@ -10,7 +10,17 @@ drives the port's two paths through their entry points:
     launch of the forward kernel a block, in its environment mode (held bit
     for bit to its plain version at 256^2 and at the 1080p block, beside the
     slot mode's check), the block's peak allocation below the miss slots'
-    size, and the per-frame and block lane efficiencies;
+    size, and the per-frame and block lane efficiencies; then the same
+    mode with the opt-in bf16 table (``--env-bf16``), bit for bit against
+    its plain version at 256^2 and at the 1080p block, its time beside the
+    f32 table's in turns, the two images' mean relative difference and its
+    ptxas report, and ``cli render --env-bf16``;
+  * the oracle renderer: ``cli render --backend oracle`` at 1920x1080,
+    depth 13, 2 frames, no kernel launch, each frame held to the kernel's
+    per-frame launch; ``cli sky`` and ``cli pick``;
+  * the silhouette gradients: ``tpt_torch.silhouette_demo --scene single``
+    and ``--scene demo`` (200 steps each), which must pass their own
+    recovery bars, their images from the forward kernel;
   * the training path: ``tpt_torch.inverse_demo`` (512x512, ray depth 8,
     two views, fixed-depth transport, clipped Adam, 200 steps), then 20
     timed steps of the 1080p training step of benchmarks/train_bench.py;
@@ -30,7 +40,8 @@ drives the port's two paths through their entry points:
     (torch.profiler), the device operations a call makes (a stream capture
     of one call; exactly one, the kernel, or the script fails), and the
     kernel's device time with a cold L2 (the calls rotate through input
-    copies four times the L2), the one to hold against the bound.
+    copies four times the L2), the one to hold against the bound; the
+    redesigned gather's cold time at GRID 1013 on a line of its own.
 
 Every phase prints one line; any failure raises and the script exits
 non-zero without printing a result.
@@ -494,10 +505,11 @@ def grad_phases(dev, card, K, G):
 
 
 def trace_blocks_per_sm():
-    """Blocks per SM of the forward kernel's select, table and environment
-    instantiations, by the occupancy API (the layout entry)."""
+    """Blocks per SM of the forward kernel's select, table, environment and
+    bf16-environment instantiations, by the occupancy API (the layout
+    entry)."""
     from tpt_torch.kernels import _build
-    blocks = (ctypes.c_int * 3)()
+    blocks = (ctypes.c_int * 4)()
     if _build.load_library().tpt_trace_layout(blocks) != 0:
         raise AssertionError("the trace kernel's layout entry failed")
     return list(blocks)
@@ -651,6 +663,195 @@ def onehot_phases(dev, card, K):
                      f"({times['bound_by']}, {segments} segments) ({card})")
         phase("onehot", line)
     return launches, times
+
+
+def env_bf16_phases(dev, card, K, scene, faces, escapes):
+    """The environment mode with the bf16 table (``--env-bf16``): bit for
+    bit against its plain version at the 256^2 tail and at the 30-frame
+    1080p block, the block's time beside the f32 table's in turns, the mean
+    relative difference of the two blocks' images (tpt's measure,
+    benchmarks/exp_env_bf16.py), the instantiation's ptxas report and blocks
+    per SM; then its path, ``cli render --env-bf16``, with the counts set to
+    0 just before it.  Returns the kernels-line entry."""
+    from tpt_torch import CameraConfig, cli
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.env import pack_block_table
+    from tpt_torch.kernels import _build
+
+    cam = CameraConfig()
+    focal, ap = cam.focal_length, cam.aperture_diameter
+    f32_table, table = pack_block_table(faces), pack_block_table(faces, dtype=torch.bfloat16)
+    env_out = ("rad_sum", "ray_count", "seed")
+    ip, iv, _ = camera_matrices(cam, 256, 256)
+    kw = dict(width=256, height=256, ray_depth=DEPTH, spp=1, n_frames=4, n_valid=3)
+    assert_bits_equal(K.trace_progressive(scene, ip, iv, 7, focal, ap, env_table=table, **kw),
+                      K.trace_progressive_plain(scene, ip, iv, 7, focal, ap, env_table=table,
+                                                **kw),
+                      "bf16 environment mode at 256^2", env_out)
+
+    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=BLOCK)
+
+    def run(t):
+        return K.trace_progressive(scene, ip, iv, 0, focal, ap, env_table=t, **kw)
+
+    got = run(table)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = K.trace_progressive_plain(scene, ip, iv, 0, focal, ap, env_table=table, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    assert_bits_equal(got, want, "bf16 environment mode, 1080p block", env_out)
+    del want
+    f32 = run(f32_table)
+    if not torch.equal(got.ray_count, f32.ray_count):
+        raise AssertionError("bf16 environment mode, 1080p block: ray counts differ from the "
+                             "f32 table's")
+    # tpt's measure: |bf16 - f32| / max(|f32|, 1e-3), the mean over the image
+    img, img_f32 = got.rad_sum / BLOCK, f32.rad_sum / BLOCK
+    rel = float(((img - img_f32).abs() / img_f32.abs().clamp_min(1e-3)).mean())
+    pixels, segments = WIDTH * HEIGHT, int(got.ray_count.sum())
+    del got, f32, img, img_f32
+    turns = [cuda_ms(lambda: run(f32_table), 3), cuda_ms(lambda: run(table), 3),
+             cuda_ms(lambda: run(table), 3), cuda_ms(lambda: run(f32_table), 3)]
+    table_bytes = table.numel() * table.element_size()
+    bound_ms, bound_by = trace_bound(segments, pixels * BLOCK, pixels, 0, scene.counts,
+                                     env_bytes=table_bytes, escapes=escapes)
+    name = "trace_progressive_kernel<false,true,true>"
+    paths, _ = _build.ensure_built()
+    ptxas = ptxas_report(paths["trace.cu"].with_suffix(".log").read_text()).get(name)
+    per_sm = trace_blocks_per_sm()[3]
+    phase("env-bf16", f"the bf16 table ({table_bytes} bytes, the f32 table's "
+          f"{f32_table.numel() * 4}): 256x256 4 frames (n_valid 3) and the {WIDTH}x{HEIGHT} "
+          f"{BLOCK}-frame block bit-equal to the plain version, ray counts equal to the f32 "
+          f"table's; block f32 {turns[0]:.3f} / bf16 {turns[1]:.3f} / bf16 {turns[2]:.3f} / f32 "
+          f"{turns[3]:.3f} ms in turns, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}); mean relative image difference to the f32 table's {rel:.3g}; "
+          f"{name}: {ptxas}, {per_sm} blocks/SM ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "bf16.png")
+        K.LAUNCHES, K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES = 0, 0, 0
+        rc = cli.main(["render", "--device", "cuda", "--width", str(WIDTH), "--height",
+                       str(HEIGHT), "--frames", str(2 * BLOCK), "--chunk", str(BLOCK),
+                       "--env-bf16", "--out", png])
+        torch.cuda.synchronize()
+        launches = (K.LAUNCHES, K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES)
+        if rc != 0 or launches != (2, 2, 2) or os.path.getsize(png) == 0:
+            raise AssertionError(f"cli render --env-bf16: rc {rc}, launches (all, environment, "
+                                 f"bf16) {launches} (want 2 each)")
+    phase("env-bf16", f"cli render --env-bf16 {WIDTH}x{HEIGHT} {2 * BLOCK} frames: {launches[2]} "
+          f"kernel launches, all in the bf16 environment mode")
+    return {"name": f"{name} (--env-bf16)", "route": "cuda",
+            "source": "tpt_torch/csrc/trace.cu", "replaces": "tpt/kernels/trace.py:519",
+            "launches": launches[2], "max_abs_err": 0.0, "ms": (turns[1] + turns[2]) / 2,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "f32_table_ms": (turns[0] + turns[3]) / 2,
+            "mean_rel_image_diff": rel, "ptxas": ptxas, "blocks_per_sm": per_sm}
+
+
+def oracle_phase(dev, card, K):
+    """``cli render --backend oracle`` at 1920x1080, depth 13, spp 1, 2
+    frames: the plain renderer, no kernel launch; each frame it rendered
+    (recorded around tpt_torch.reference.render_frame) is held to the
+    kernel's per-frame launch at the same frame and inputs
+    (tpt_torch.kernels.render.render_frame) at compare_per_frame's bar: at
+    most 1e-4 of the pixels off, the others within rtol = atol = 1e-5."""
+    from tpt_torch import cli, reference
+    from tpt_torch.kernels.render import render_frame
+
+    frames = []
+    plain = reference.render_frame
+
+    def recording(scene, env_faces, camera, cfg, frame):
+        image, rays = plain(scene, env_faces, camera, cfg, frame)
+        frames.append((scene, env_faces, camera, cfg, frame, image.clone(), int(rays)))
+        return image, rays
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "oracle.png")
+        reference.render_frame = recording
+        try:
+            K.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["render", "--device", "cuda", "--backend", "oracle", "--width",
+                           str(WIDTH), "--height", str(HEIGHT), "--ray-depth", str(DEPTH),
+                           "--spp", "1", "--frames", "2", "--out", png])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.LAUNCHES
+        finally:
+            reference.render_frame = plain
+        if rc != 0 or len(frames) != 2 or launches != 0 or os.path.getsize(png) == 0:
+            raise AssertionError(f"cli render --backend oracle: rc {rc}, {len(frames)} frames, "
+                                 f"{launches} kernel launches (want 2 frames, none)")
+    lines = []
+    for scene, env_faces, camera, cfg, frame, image, rays in frames:
+        want, want_rays = render_frame(scene, env_faces, camera, cfg, frame)
+        off = ~((image - want).abs() <= 1e-5 + 1e-5 * want.abs()).all(-1)
+        n_off = int(off.sum())
+        if n_off > 1e-4 * off.numel() or not bool(torch.isfinite(image).all()):
+            raise AssertionError(f"oracle frame {frame}: {n_off} pixels off the kernel's")
+        lines.append(f"frame {frame}: {n_off} of {off.numel()} pixels off the kernel's frame, "
+                     f"rays {rays} (kernel {int(want_rays)})")
+    phase("oracle", f"cli render --backend oracle {WIDTH}x{HEIGHT} depth {DEPTH} spp 1, 2 "
+          f"frames: {launches} kernel launches, {wall:.2f} s wall incl. the atmosphere; "
+          + "; ".join(lines) + f" ({card})")
+
+
+def silhouette_phases(dev, card, K):
+    """``python -m tpt_torch.silhouette_demo`` on the card, ``--scene
+    single`` and ``--scene demo`` at their defaults (200 steps): each must
+    exit 0 through its own assertion, its rendered and target images from
+    the forward kernel.  Returns the forward kernel's launches."""
+    from tpt_torch import silhouette_demo
+
+    total = 0
+    for scene_name, want in (("single", 201), ("demo", 400)):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "silhouette.json")
+            K.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = silhouette_demo.main(["--scene", scene_name, "--device", "cuda", "--out", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.LAUNCHES
+            with open(out) as f:
+                res = json.load(f)
+        if rc != 0 or launches != want:
+            raise AssertionError(f"silhouette_demo --scene {scene_name}: rc {rc}, {launches} "
+                                 f"forward kernel launches (want {want})")
+        errs = ", ".join(f"{k} {res[k]}" for k in res if k.endswith(("_before", "_after")))
+        phase("silhouette", f"silhouette_demo --scene {scene_name} {res['size']}^2 "
+              f"{res['steps']} steps: rc {rc}, {launches} forward kernel launches, {errs}, "
+              f"{wall:.1f} s wall ({card})")
+        total += launches
+    return total
+
+
+def cli_tools_phase(dev, card):
+    """``cli sky`` at its defaults and ``cli pick --x 416 --y 416`` on the
+    card, each exiting 0; the pick must name an object."""
+    import contextlib
+    import io
+    from tpt_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "sky.png")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc_sky = cli.main(["sky", "--device", "cuda", "--out", png])
+        sky_ok = rc_sky == 0 and os.path.getsize(png) > 0
+    sky = text.getvalue().strip().splitlines()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc_pick = cli.main(["pick", "--device", "cuda", "--x", "416", "--y", "416"])
+    pick = text.getvalue().strip().splitlines()
+    if not sky_ok or rc_pick != 0 or not pick or "picked: nothing" in pick[0]:
+        raise AssertionError(f"cli sky rc {rc_sky}: {sky}; cli pick rc {rc_pick}: {pick}")
+    phase("cli", f"sky: {sky[0]}; pick --x 416 --y 416: {pick[0]} ({card})")
 
 
 def probe_bound(name: str, n: int, rows: int, cols: int):
@@ -946,6 +1147,16 @@ def probe_phases(dev, card):
     if extra:
         raise AssertionError(f"probe calls that make other device operations than their one "
                              f"kernel: {extra}")
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.2f} us"
+    for name in ("p1", "p3"):
+        rec = per[name][PROBE_GRIDS[1]]
+        cold, b_ms = rec["device_cold_ms"], rec["bound_ms"]
+        phase("probes", f"the redesigned gather, {name} GRID {PROBE_GRIDS[1]}: exact against its "
+              f"plain version, {len(rec['device_ops'])} device operation a call, "
+              f"{us(cold)} with a cold L2 against its {us(b_ms)} bytes bound ("
+              + ("not measured" if cold is None else f"{b_ms / cold:.0%}")
+              + f"), {us(rec['device_ms'])} warm; library table[idx, 0] "
+              f"{us(rec['library_ms'])} a call ({card})")
 
     entries = []
     for kernel in ("probe_gather_kernel", "probe_scatter_kernel", "probe_elementwise_kernel"):
@@ -998,7 +1209,8 @@ def main() -> int:
     phase("trace-build", "csrc/trace.cu ptxas: " + "; ".join(
         f"{k} {v}" for k, v in ptxas_report(
             paths["trace.cu"].with_suffix(".log").read_text()).items())
-        + "; blocks per SM (select, table, environment): " + ", ".join(map(str, per_sm)))
+        + "; blocks per SM (select, table, environment, bf16 environment): "
+        + ", ".join(map(str, per_sm)))
 
     scene = demo_scene().build(dev)
     cam = CameraConfig()
@@ -1031,7 +1243,8 @@ def main() -> int:
     from tpt_torch.config import AtmosphereConfig
     from tpt_torch.env import pack_block_table
     from tpt_torch.sky import compute_atmosphere
-    table = pack_block_table(compute_atmosphere(AtmosphereConfig(size=256), dev))
+    faces = compute_atmosphere(AtmosphereConfig(size=256), dev)
+    table = pack_block_table(faces)
     env_out = ("rad_sum", "ray_count", "seed")
     ip, iv, _ = camera_matrices(cam, 256, 256)
     kw = dict(width=256, height=256, ray_depth=DEPTH, spp=1, n_frames=4, n_valid=3)
@@ -1092,6 +1305,7 @@ def main() -> int:
     phase("refill", f"lane efficiency (a warp's segments over 32 x its longest lane's): "
           f"{WIDTH}x{HEIGHT} frame {times['per_frame_lane_efficiency']:.4f}, {BLOCK}-frame "
           f"block {times['lane_efficiency']:.4f}")
+    bf16_entry = env_bf16_phases(dev, card, K, scene, faces, escapes)
 
     # ---- 5. golden image through the kernel ----
     from tpt_torch.kernels.render import progressive_frames, render_fields
@@ -1166,6 +1380,12 @@ def main() -> int:
           f"(traced segments / s) on {card}; a block's peak allocation {block_bytes} bytes "
           f"above the {resident} resident (the miss slots would be {slot_bytes})")
 
+    # the oracle renderer, the host tools and the silhouette demos through
+    # their entry points
+    oracle_phase(dev, card, K)
+    cli_tools_phase(dev, card)
+    silhouette_launches = silhouette_phases(dev, card, K)
+
     # the training path first, before torch.profiler first runs (the grad
     # phase's per-kernel times), so its wall clock is taken as it was before
     # the grad phase used the profiler
@@ -1178,16 +1398,17 @@ def main() -> int:
     # one kernel serves both forward TPU kernels (pallas_trace_progressive at
     # :519 and pallas_trace at :298); its times are those of the render
     # path's launch, a 30-frame 1080p block in the environment mode, its
-    # launches those of the render path and the training path, its lane
-    # efficiency that of the block.  Its table mode (the one-hot gather) is
-    # timed per 1080p frame.  No one PyTorch call computes a trace or its
+    # launches those of the render path, the training path and the
+    # silhouette demos, its lane efficiency that of the block.  Its table
+    # mode (the one-hot gather) is timed per 1080p frame, its bf16
+    # environment mode per block, each with its own path's launches.  No one PyTorch call computes a trace or its
     # backward: library_ms is null.
     print(json.dumps({"kernels": [{
         "name": "trace_progressive_kernel",
         "route": "cuda",
         "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:519",
-        "launches": launches + train_launches,
+        "launches": launches + train_launches + silhouette_launches,
         "max_abs_err": max_err,
         "ms": times["block_ms"],
         "plain_ms": times["block_plain_ms"],
@@ -1196,7 +1417,7 @@ def main() -> int:
         "library_ms": None,
         "lane_efficiency": times["lane_efficiency"],
     }, {
-        "name": "trace_progressive_kernel<true,false> (gather=onehot)",
+        "name": "trace_progressive_kernel<true,false,false> (gather=onehot)",
         "route": "cuda",
         "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:226",
@@ -1208,7 +1429,7 @@ def main() -> int:
         "bound_by": onehot_times["bound_by"],
         "library_ms": None,
         "select_ms": onehot_times["select_ms"],
-    }] + [{
+    }, bf16_entry] + [{
         "name": f"trace_grad_{kernel}_kernel",
         "route": "cuda",
         "source": f"tpt_torch/csrc/{source}",

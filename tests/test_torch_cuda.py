@@ -158,7 +158,7 @@ def test_wrapper_rejects_bad_inputs(device):
 def test_trace_layout_gives_blocks_per_sm(device):
     import ctypes
     from tpt_torch.kernels import _build
-    blocks = (ctypes.c_int * 3)()
+    blocks = (ctypes.c_int * 4)()   # select, table, environment, bf16 environment
     assert _build.load_library().tpt_trace_layout(blocks) == 0
     assert all(1 <= b <= 16 for b in blocks), list(blocks)
 
@@ -648,3 +648,76 @@ def test_bwd_probes_main_launches_every_probe(device, capsys):
     assert bwd_probes.main([]) == 0
     assert all(P.PROBE_LAUNCHES[n] == before[n] + 4 for n in P.PROBES)   # 1 warm-up + 3 timed
     assert capsys.readouterr().out.count(": OK ") == len(P.PROBES)
+
+
+@pytest.mark.parametrize("grid", [100, 1013])
+def test_gather_kernel_equals_plain_exactly(device, grid):
+    """The gather (probes p1, p3) over the grid-strided int4 loop, with rows
+    outside the table among the indices (0 there, the one-hot product's
+    value), equal to its plain version and to the one-hot product."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import probes as P
+    idx, table, g = make_inputs(grid, device)
+    idx = idx.clone()
+    idx.view(-1)[::97] = -1
+    idx.view(-1)[5::101] = P.R
+    launches = P.PROBE_LAUNCHES["p1"]
+    got = P.p1(idx, table, g)
+    torch.cuda.synchronize()
+    assert P.PROBE_LAUNCHES["p1"] == launches + 1
+    inside = (idx >= 0) & (idx < P.R)
+    want = torch.where(inside, P.p1_plain(idx.clamp(0, P.R - 1), table, g), 0.0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[~inside].any() and inside.sum() < idx.numel()
+
+
+def test_gather_refuses_misaligned_or_short_inputs(device):
+    """The wrapper raises for an idx off a 16-byte boundary and for fewer
+    rows than a tile; the entry point refuses (cudaErrorInvalidValue, 1)
+    an element count that is not a multiple of 4 and an unaligned idx or
+    out, and launches nothing."""
+    from tpt_torch.bwd_probes import make_inputs
+    from tpt_torch.kernels import _build
+    from tpt_torch.kernels import probes as P
+    idx, table, g = make_inputs(2, device)
+    flat = torch.empty(idx.numel() + 4, dtype=idx.dtype, device=device)
+    shifted = flat[1:1 + idx.numel()].view(idx.shape)
+    shifted.copy_(idx)
+    launches = P.PROBE_LAUNCHES["p1"]
+    with pytest.raises(ValueError, match="16-byte"):
+        P.p1(shifted, table, g)
+    with pytest.raises(ValueError, match="tile"):
+        P.p1(idx[:8], table, g[:8])
+    lib = _build.load_library()
+    out = torch.empty_like(g)
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, o, n in ((idx.data_ptr(), out.data_ptr(), g.numel() - 2),
+                    (shifted.data_ptr(), out.data_ptr(), g.numel()),
+                    (idx.data_ptr(), out.data_ptr() + 4, g.numel() - 4)):
+        assert lib.tpt_probe_gather(i, table.data_ptr(), P.K, 0, n, o, stream) == 1
+    torch.cuda.synchronize()
+    assert P.PROBE_LAUNCHES["p1"] == launches
+
+
+def test_bf16_env_kernel_matches_plain_bit_for_bit(device):
+    """The environment mode with the bf16 table (--env-bf16) against its
+    plain version at 64^2 x 4 frames: rad_sum, ray counts and seeds bit for
+    bit; its ray counts are the f32 table's (the table changes no
+    decision)."""
+    args = setup(device, 64)
+    from tpt_torch.config import AtmosphereConfig
+    from tpt_torch.sky import compute_atmosphere
+    faces = compute_atmosphere(AtmosphereConfig(size=64), device)
+    table = pack_block_table(faces, dtype=torch.bfloat16)
+    assert table.shape[1] == 6
+    kw = dict(width=64, height=64, ray_depth=13, spp=1, n_frames=4)
+    launches = (K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES)
+    got = K.trace_progressive(*args[:3], 7, *args[3:], env_table=table, **kw)
+    torch.cuda.synchronize()
+    assert (K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    want = K.trace_progressive_plain(*args[:3], 7, *args[3:], env_table=table, **kw)
+    assert_bits(got, want, ("rad_sum", "ray_count", "seed"))
+    f32 = K.trace_progressive(*args[:3], 7, *args[3:], env_table=pack_block_table(faces), **kw)
+    assert torch.equal(got.ray_count, f32.ray_count)
+    rel = float((got.rad_sum - f32.rad_sum).abs().mean() / f32.rad_sum.abs().mean())
+    assert 0.0 < rel < 2 ** -8

@@ -121,7 +121,8 @@ def c_signature(source, name):
 @pytest.mark.parametrize("name", ["tpt_trace_grad_tape", "tpt_trace_grad_tape_layout",
                                   "tpt_trace_grad_adjoint", "tpt_trace_grad_adjoint_layout",
                                   "tpt_trace_progressive", "tpt_trace_progressive_env",
-                                  "tpt_trace_onehot", "tpt_trace_layout"])
+                                  "tpt_trace_progressive_env_bf16", "tpt_trace_onehot",
+                                  "tpt_trace_layout"])
 def test_entry_points_match_their_sources(name):
     """Each backward and forward entry's ctypes argument types against its
     C signature: a pointer for each pointer, a 64-bit int for int64_t, an

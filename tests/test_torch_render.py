@@ -148,10 +148,14 @@ def test_cli_render_cpu(tmp_path):
     assert float(state.image.mean()) > 0.0
     assert cli.main(base + ["--frames", "2", "--resume", ckpt, "--out", out]) == 0
     assert tprog.load_checkpoint(ckpt).frame == 5
-    with pytest.raises(NotImplementedError):
-        cli.main(base + ["--frames", "1", "--env-bf16", "--out", out])
-    with pytest.raises(SystemExit):            # tpt.reference is not ported
-        cli.main(base + ["--frames", "1", "--backend", "oracle", "--out", out])
+    # the bf16 table and the oracle backend run (tests/test_torch_env_bf16.py
+    # and tests/test_torch_reference.py hold them to tpt)
+    assert cli.main(base + ["--frames", "1", "--env-bf16", "--out", out]) == 0
+    assert tprog.load_checkpoint(ckpt).frame == 1
+    assert cli.main(base + ["--frames", "1", "--backend", "oracle", "--out", out]) == 0
+    assert tprog.load_checkpoint(ckpt).frame == 1
+    with pytest.raises(SystemExit):            # tpt.cli's two backends only
+        cli.main(base + ["--frames", "1", "--backend", "xla", "--out", out])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["render", "--device", "cuda", "--frames", "1", "--out", out])
@@ -166,7 +170,9 @@ def test_profile_block_needs_a_card():
 
 def test_port_imports_no_jax():
     code = ("import sys; import tpt_torch, tpt_torch.cli, tpt_torch.kernels.render, "
-            "tpt_torch.kernels.trace, tpt_torch.sky, tpt_torch.profile_block; "
+            "tpt_torch.kernels.trace, tpt_torch.sky, tpt_torch.profile_block, "
+            "tpt_torch.reference, tpt_torch.silhouette, tpt_torch.silhouette_demo, "
+            "tpt_torch.pick; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'tpt' or m.startswith('tpt.')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

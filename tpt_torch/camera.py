@@ -4,8 +4,9 @@
 Matrix conventions follow the JAX package: ordinary column-vector maths
 ``M @ v`` with the standard OpenGL projection/look-at matrices.  The
 matrices are tiny, so they are built in f32 on the CPU; callers move them
-where they are needed.  Eye rays and thin-lens depth of field are
-:func:`tpt_torch.integrator.primary_ray`.
+where they are needed.  The tracer's eye rays and thin-lens depth of field
+are :func:`tpt_torch.integrator.primary_ray`; :func:`eye_ray` is the plain
+pinhole ray through NDC points.
 """
 
 from __future__ import annotations
@@ -97,6 +98,25 @@ def camera_matrices(cam: CameraConfig, width: int, height: int
     inv_view = inverse_look_at(pos, pos + vdir, cam.up)
     inv_proj = inverse_perspective(cam.fov_degrees, width / float(height))
     return inv_proj, inv_view, pos
+
+
+def eye_ray(inv_proj, inv_view, view_pos, ndc):
+    """World-space eye ray through NDC point(s).
+
+    ``ndc``: [..., 2]. Returns (origin [..., 3], direction [..., 3])."""
+    ndc = _f32(ndc)
+    x, y = ndc[..., 0], ndc[..., 1]
+    # inv_proj @ (x, y, -1, 0), then force zw = (-1, 0):
+    ex = inv_proj[0, 0] * x + inv_proj[0, 1] * y - inv_proj[0, 2]
+    ey = inv_proj[1, 0] * x + inv_proj[1, 1] * y - inv_proj[1, 2]
+    ez = torch.full_like(ex, -1.0)
+    # (inv_view @ (ex, ey, -1, 0)).xyz
+    d = (inv_view[:3, 0] * ex[..., None]
+         + inv_view[:3, 1] * ey[..., None]
+         + inv_view[:3, 2] * ez[..., None])
+    d = normalize(d)
+    origin = torch.broadcast_to(_f32(view_pos), d.shape)
+    return origin, d
 
 
 def pixel_ndc(x, y, width, height, jitter_x, jitter_y):

@@ -7,11 +7,21 @@
 // them:
 //
 //   * probe_gather_kernel, p1 (exp_bwd_probes.py:46-54) and p3 (:82-91):
-//     out[b] = table[idx[b], col], one thread per element.  The TPU took
-//     the row with a one-hot [B, 128] x [128, 32] product because it has no
-//     per-lane gather; here each block stages the table's column in shared
-//     memory (512 bytes) and each thread reads its row by index.  An index
-//     outside the table gives 0, the one-hot product's value.
+//     out[b] = table[idx[b], col].  The TPU took the row with a one-hot
+//     [B, 128] x [128, 32] product because it has no per-lane gather; here
+//     each thread reads its rows by index from the table's column, staged
+//     in shared memory (512 bytes).  An index outside the table gives 0,
+//     the one-hot product's value.  The design moves the bytes as the
+//     elementwise kernel does: each thread reads idx 16 bytes (4 elements)
+//     and writes 16 bytes at a time, over a grid of at most
+//     kGatherBlocksPerSm 256-thread blocks per SM that strides over the
+//     int4s, so the column's staging and its barrier are paid once per
+//     block, not once per 1024 elements; a thread issues its first idx
+//     load before the staging, so the two latencies overlap.  Reading the
+//     column through the read-only cache instead (no staging, no barrier)
+//     makes a warp's 32 lookups touch up to 32 cache lines a load; shared
+//     memory serves them in a few bank wavefronts (gather_designs.py
+//     times both).
 //   * probe_scatter_kernel, p1t (:57-70), p5 (:109-121), p6 (:126-144),
 //     p7 (:148-165) and p8 (:168-185): the transposes of the gather,
 //     d[r, k] = a_k * sum_{b in window, idx[b] = r} g[b]
@@ -54,10 +64,10 @@
 // harness's GRID = 100 (204,800 elements, ~1.6 MB) the bound is ~0.5 us,
 // so the launch, and for the scatter the merge's round trips, set the time.
 //
-// The scatter and the elementwise kernels load 16 bytes at a time, so idx,
-// g and x must start on a 16-byte boundary and hold a multiple of 4
-// elements; the wrapper checks the pointers and raises, and the entry
-// points refuse what is not (cudaErrorInvalidValue).  The library is built
+// Every kernel loads 16 bytes at a time, so idx, g, x and out must start
+// on a 16-byte boundary and hold a multiple of 4 elements; the wrapper
+// checks the pointers and raises, and the entry points refuse what is not
+// (cudaErrorInvalidValue).  The library is built
 // with the flags of the trace kernels (-fmad=false, IEEE division and
 // sqrt).  p4 takes its fused multiply-adds from explicit fmaf calls,
 // and one reciprocal of z + 2 serves its three divisions by it: it stays
@@ -82,16 +92,31 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kRows = 128;     // the table's rows: the one-hot width R
 
+constexpr int kGatherBlocksPerSm = 8;   // 2048 threads: the SM's full occupancy
+
+__device__ __forceinline__ float lookup(const float* column, int r) {
+  return (r >= 0 && r < kRows) ? column[r] : 0.0f;
+}
+
+// out4[i] = the column at the 4 rows of idx4[i], for i < n4, in a grid
+// that strides over the int4s.
 __global__ void __launch_bounds__(kBlock)
-probe_gather_kernel(const int32_t* __restrict__ idx, const float* __restrict__ table, int cols,
-                    int col, int64_t n, float* __restrict__ out) {
+probe_gather_kernel(const int4* __restrict__ idx4, const float* __restrict__ table, int cols,
+                    int col, int64_t n4, float4* __restrict__ out4) {
   __shared__ float column[kRows];
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) column[r] = table[r * cols + col];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlock;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  int4 r = i < n4 ? __ldg(idx4 + i) : make_int4(0, 0, 0, 0);
+  if (threadIdx.x < kRows) column[threadIdx.x] = __ldg(table + threadIdx.x * cols + col);
   __syncthreads();
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  const int r = idx[b];
-  out[b] = (r >= 0 && r < kRows) ? column[r] : 0.0f;
+  while (i < n4) {
+    const int64_t next = i + stride;
+    const int4 rn = next < n4 ? __ldg(idx4 + next) : r;   // in flight while this one is stored
+    out4[i] = make_float4(lookup(column, r.x), lookup(column, r.y), lookup(column, r.z),
+                          lookup(column, r.w));
+    r = rn;
+    i = next;
+  }
 }
 
 // ---- the scatter ----
@@ -269,24 +294,25 @@ unsigned blocks_for(int64_t n, int64_t per_block) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u; }
 
-// The SMs of the current device: the scatter's grid is at most one block
-// of kScatterBlock threads each (a second block per SM doubles the
+// The SMs of the current device, asked once per device: the gather's grid
+// is at most kGatherBlocksPerSm blocks a SM; the scatter's at most one
+// block of kScatterBlock threads a SM (a second block per SM doubles the
 // partials the last block sums and measured slower), and at most
 // kMaxBlocks.
-cudaError_t scatter_grid_cap(unsigned* cap) {
+cudaError_t sm_count(unsigned* sms) {
   constexpr int kMaxDevices = 64;
-  static unsigned caps[kMaxDevices];   // 0 until first asked; a race writes the same value
+  static unsigned counts[kMaxDevices];   // 0 until first asked; a race writes the same value
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (caps[dev] == 0u) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (counts[dev] == 0u) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    caps[dev] = static_cast<unsigned>(sms < kMaxBlocks ? sms : kMaxBlocks);
+    counts[dev] = static_cast<unsigned>(n);
   }
-  *cap = caps[dev];
+  *sms = counts[dev];
   return cudaSuccess;
 }
 
@@ -297,13 +323,20 @@ cudaError_t scatter_grid_cap(unsigned* cap) {
 // one kernel on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for arguments it refuses, without launching).
 
-// out f32[n] = table[idx[b] * cols + col] for the table f32[128, cols].
+// out f32[n] = table[idx[b] * cols + col] for the table f32[128, cols]; n a
+// multiple of 4, idx and out 16-byte aligned.
 extern "C" int tpt_probe_gather(const int32_t* idx, const float* table, int cols, int col,
                                 int64_t n, float* out, void* stream) {
-  if (cols <= 0 || cols > kMaxCols || col < 0 || col >= cols || n <= 0)
+  if (cols <= 0 || cols > kMaxCols || col < 0 || col >= cols || n <= 0 || n % 4 != 0 ||
+      !aligned16(idx) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  probe_gather_kernel<<<blocks_for(n, kBlock), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, table, cols, col, n, out);
+  unsigned sms = 0u;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n4 = n / 4;
+  const unsigned want = blocks_for(n4, kBlock), cap = sms * kGatherBlocksPerSm;
+  probe_gather_kernel<<<want < cap ? want : cap, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int4*>(idx), table, cols, col, n4, reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -327,9 +360,10 @@ extern "C" int tpt_probe_scatter(const int32_t* idx, const float* g, int64_t fir
       (first | n) % 4 != 0 || !aligned16(idx) || !aligned16(g) || !aligned16(work))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n4 = (n - first) / 4;
-  unsigned cap = 0u;
-  const cudaError_t err = scatter_grid_cap(&cap);
+  unsigned sms = 0u;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned cap = sms < static_cast<unsigned>(kMaxBlocks) ? sms : kMaxBlocks;
   const unsigned want = blocks_for(n4, kScatterBlock);   // at least one float4 a thread
   probe_scatter_kernel<<<want < cap ? want : cap, kScatterBlock, 0,
                          static_cast<cudaStream_t>(stream)>>>(

@@ -8,7 +8,7 @@
 //     gathers: "select" (masked selects over the scene's rows) and
 //     "onehot" (trace.py:226-264, the winner's row of the f32[128, 24]
 //     attribute table taken by a one-hot [24, 128] x [128, B] product).
-// One transport serves them all.  Two template parameters choose:
+// One transport serves them all.  Three template parameters choose:
 //   * kTable, the winner gather: the scene's rows (select) or the attribute
 //     table (one-hot);
 //   * kEnv, what an escaped path leaves.  Without it (the per-frame path and
@@ -19,7 +19,10 @@
 //     environment up itself when a path escapes and adds throughput x
 //     environment to the sample's radiance; it writes no slots.  That is the
 //     JAX render path's deferred fetch (tpt/kernels/render.py:110-113) done
-//     in the kernel, its sum taken per sample.
+//     in the kernel, its sum taken per sample;
+//   * kBf16, with kEnv, the table's width: the f32 table's 48-byte rows or
+//     the opt-in bf16 table's 24-byte rows (tpt/env.py:252-260, the JAX
+//     package's --env-bf16), which halve the bytes a lookup reads.
 // Each instantiation has its own C entry point.  The Python wrappers in
 // tpt_torch/kernels/trace.py only name the outputs differently.
 //
@@ -53,9 +56,13 @@
 //   * the environment lookup (kEnv) repeats
 //     tpt_torch.env.sample_environment_blocked's arithmetic in its order:
 //     GL face selection, an IEEE 1 / max(ma, 1e-30), the bilinear taps and
-//     weights, and three independent 16-byte loads of the tap's 48-byte
-//     pack_block_table row (the table, 19.2 MB for the 256^2 sky, stays in
-//     the 50 MB L2).
+//     weights, and three independent loads of the tap's pack_block_table
+//     row: 16 bytes each from the f32 table's 48-byte row (the table, 19.2
+//     MB for the 256^2 sky, stays in the 50 MB L2), 8 bytes each from the
+//     bf16 table's 24-byte row, which is 8-byte but not 16-byte aligned
+//     (9.6 MB).  A bf16 texel widens to f32 by a 16-bit shift, which is
+//     exact, and the blend then runs the f32 table's operations in their
+//     order, so both tables give the plain version's bits.
 //
 // What bounds it on this card: per-thread FP32 transport maths (a
 // closest-hit scan over every primitive per bounce) and the lanes of a warp
@@ -141,9 +148,12 @@ struct Path {
 };
 
 // The environment of kEnv: a tpt_torch.env.pack_block_table table,
-// f32[6 (size + 2)^2, 12] on a 16-byte boundary.  Row (face (S + 2) + y0)
-// (S + 2) + x0 holds the four taps [t00, t01, t10, t11] of the bilinear
-// footprint whose top-left padded texel is (y0, x0), each rgb.
+// f32[6 (size + 2)^2, 12] on a 16-byte boundary, or with kBf16 its bf16
+// form f32[6 (size + 2)^2, 6] on an 8-byte boundary (bf16 value 2j in the
+// low 16 bits of word j, value 2j + 1 in the high 16 bits).  Row
+// (face (S + 2) + y0) (S + 2) + x0 holds the four taps [t00, t01, t10, t11]
+// of the bilinear footprint whose top-left padded texel is (y0, x0), each
+// rgb.
 struct EnvTable {
   const float* rows;
   int size;
@@ -151,10 +161,33 @@ struct EnvTable {
 
 constexpr float kInvMaFloor = 1e-30f;  // tpt_torch.env._INV_MA_FLOOR
 
+// The 12 texels of row `row`: three 16-byte loads of an f32 row, or three
+// 8-byte loads of a bf16 row, each bf16 value widened by a 16-bit shift.
+template <bool kBf16>
+__device__ __forceinline__ void fetch_taps(const EnvTable& env, int64_t row, float* tap) {
+  if constexpr (kBf16) {
+    const uint2* r = reinterpret_cast<const uint2*>(env.rows + row * 6);
+    const uint2 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2);
+    const uint32_t w[6] = {q0.x, q0.y, q1.x, q1.y, q2.x, q2.y};
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      tap[2 * j] = __uint_as_float(w[j] << 16);
+      tap[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+  } else {
+    const float4* r = reinterpret_cast<const float4*>(env.rows + row * 12);
+    const float4 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2);
+    const float t[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+#pragma unroll
+    for (int k = 0; k < 12; ++k) tap[k] = t[k];
+  }
+}
+
 // tpt_torch.env.sample_environment_blocked at one direction:
 // cubemap_face_uv_planar, _bilinear_taps and _lerp2, each rounding in their
 // order (1 - fx is its own rounding; 1.0 / x is torch's reciprocal, an IEEE
 // division).
+template <bool kBf16>
 __device__ __forceinline__ V3 environment(const EnvTable& env, V3 d) {
   const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
   const bool x_major = ax >= ay && ax >= az;
@@ -192,9 +225,8 @@ __device__ __forceinline__ V3 environment(const EnvTable& env, V3 d) {
   const int y0 = min(max(static_cast<int>(y0f), -1), env.size - 1) + 1;
   const int pad = env.size + 2;
   const int64_t row = static_cast<int64_t>((face * pad + y0) * pad + x0);
-  const float4* r = reinterpret_cast<const float4*>(env.rows + row * 12);
-  const float4 q0 = __ldg(r), q1 = __ldg(r + 1), q2 = __ldg(r + 2);
-  const float tap[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+  float tap[12];
+  fetch_taps<kBf16>(env, row, tap);
   const float gx = 1.0f - fx, gy = 1.0f - fy;
   float out[3];
 #pragma unroll
@@ -210,13 +242,13 @@ __device__ __forceinline__ V3 environment(const EnvTable& env, V3 d) {
 // tpt_torch.integrator.bounce_step restricted to its alive lane.
 // At escape, kEnv adds the environment term as the plain version's flush
 // does, radiance + miss_thr * env(miss_dir); else it defers the fetch.
-template <bool kTable, bool kEnv>
+template <bool kTable, bool kEnv, bool kBf16>
 __device__ __forceinline__ void bounce(const SceneSmem<kTable>& sc, int ns, int nc, bool rr,
                                        const EnvTable& env, Path& p) {
   Hit h = closest_hit(sc.g, ns, nc, p.o, p.d);
   if (!h.found) {
     if constexpr (kEnv) {
-      p.rad = p.rad + p.thr * environment(env, p.d);
+      p.rad = p.rad + p.thr * environment<kBf16>(env, p.d);
     } else {
       p.miss_d = p.d;
       p.miss_t = p.thr;
@@ -329,8 +361,8 @@ __device__ __forceinline__ void bounce(const SceneSmem<kTable>& sc, int ns, int 
 // kTable: read the winners from `table` (the attribute table, f32[128, 24]);
 // else from sphere_material / cuboid_material.  The other pointers of the
 // pair are not read.  kEnv: `env` is read and miss_dir / miss_thr are not
-// written; else the reverse.
-template <bool kTable, bool kEnv>
+// written; else the reverse.  kBf16: `env` is the bf16 table.
+template <bool kTable, bool kEnv, bool kBf16>
 __global__ void __launch_bounds__(kBlock)
 trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
                          const float* __restrict__ sphere_material,
@@ -383,7 +415,7 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
   while (busy) {
     if (b < ray_depth) {
       ++rays;
-      bounce<kTable, kEnv>(sc, ns, nc, rr != 0, env, p);
+      bounce<kTable, kEnv, kBf16>(sc, ns, nc, rr != 0, env, p);
       ++b;
     }
     if (!p.alive || b >= ray_depth) {  // the item ends: its sums, its slots, the next item
@@ -422,7 +454,7 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
 
 // The host side of the entry points: the camera from host memory, the
 // checks, the launch.
-template <bool kTable, bool kEnv>
+template <bool kTable, bool kEnv, bool kBf16>
 int launch(const float* sphere_pos_radius, const float* sphere_material,
            const float* cuboid_min, const float* cuboid_max, const float* cuboid_material,
            const float* table, EnvTable env, int num_spheres, int num_cuboids,
@@ -435,7 +467,7 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
       width <= 0 || height <= 0 || n_rows <= 0 || n_frames < 0 || n_valid < 0 ||
       n_valid > n_frames || spp <= 0 || ray_depth < 0 ||
       (kEnv && (env.rows == nullptr || env.size < 1 ||
-                reinterpret_cast<uintptr_t>(env.rows) % 16 != 0))) {
+                reinterpret_cast<uintptr_t>(env.rows) % (kBf16 ? 8 : 16) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* c = camera_host;
@@ -447,7 +479,7 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
 
   const int64_t npix = static_cast<int64_t>(n_rows) * width;
   const unsigned blocks = static_cast<unsigned>((npix + kBlock - 1) / kBlock);
-  trace_progressive_kernel<kTable, kEnv>
+  trace_progressive_kernel<kTable, kEnv, kBf16>
       <<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           sphere_pos_radius, sphere_material, cuboid_min, cuboid_max, cuboid_material, table,
           env, num_spheres, num_cuboids, cam, width, height, n_rows, row0, frame0, n_frames,
@@ -476,12 +508,12 @@ extern "C" int tpt_trace_progressive(
     int spp, int ray_depth, int jitter_center, int russian_roulette,
     float* rad_sum, float* miss_dir, float* miss_thr, int32_t* ray_count,
     int64_t* seed, void* stream) {
-  return launch<false, false>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
-                              cuboid_material, nullptr, EnvTable{nullptr, 0}, num_spheres,
-                              num_cuboids, camera_host, width, height, n_rows, row0, frame0,
-                              n_frames, n_valid, spp, ray_depth, jitter_center,
-                              russian_roulette, rad_sum, miss_dir, miss_thr, ray_count, seed,
-                              stream);
+  return launch<false, false, false>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
+                                     cuboid_material, nullptr, EnvTable{nullptr, 0}, num_spheres,
+                                     num_cuboids, camera_host, width, height, n_rows, row0,
+                                     frame0, n_frames, n_valid, spp, ray_depth, jitter_center,
+                                     russian_roulette, rad_sum, miss_dir, miss_thr, ray_count,
+                                     seed, stream);
 }
 
 // The select gather with the environment fetched at escape: n_frames
@@ -496,12 +528,31 @@ extern "C" int tpt_trace_progressive_env(
     int spp, int ray_depth, int jitter_center, int russian_roulette,
     const float* env_table, int env_size, float* rad_sum, int32_t* ray_count,
     int64_t* seed, void* stream) {
-  return launch<false, true>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
-                             cuboid_material, nullptr, EnvTable{env_table, env_size},
-                             num_spheres, num_cuboids, camera_host, width, height, n_rows, row0,
-                             frame0, n_frames, n_valid, spp, ray_depth, jitter_center,
-                             russian_roulette, rad_sum, nullptr, nullptr, ray_count, seed,
-                             stream);
+  return launch<false, true, false>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
+                                    cuboid_material, nullptr, EnvTable{env_table, env_size},
+                                    num_spheres, num_cuboids, camera_host, width, height, n_rows,
+                                    row0, frame0, n_frames, n_valid, spp, ray_depth,
+                                    jitter_center, russian_roulette, rad_sum, nullptr, nullptr,
+                                    ray_count, seed, stream);
+}
+
+// The same with the bf16 table: env_table is the device buffer
+// f32[6 (env_size + 2)^2, 6] of tpt_torch.env.pack_block_table(dtype=
+// torch.bfloat16), on an 8-byte boundary.
+extern "C" int tpt_trace_progressive_env_bf16(
+    const float* sphere_pos_radius, const float* sphere_material,
+    const float* cuboid_min, const float* cuboid_max, const float* cuboid_material,
+    int num_spheres, int num_cuboids, const float* camera_host, int width,
+    int height, int n_rows, int row0, int frame0, int n_frames, int n_valid,
+    int spp, int ray_depth, int jitter_center, int russian_roulette,
+    const float* env_table, int env_size, float* rad_sum, int32_t* ray_count,
+    int64_t* seed, void* stream) {
+  return launch<false, true, true>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
+                                   cuboid_material, nullptr, EnvTable{env_table, env_size},
+                                   num_spheres, num_cuboids, camera_host, width, height, n_rows,
+                                   row0, frame0, n_frames, n_valid, spp, ray_depth, jitter_center,
+                                   russian_roulette, rad_sum, nullptr, nullptr, ray_count, seed,
+                                   stream);
 }
 
 // The one-hot gather's table mode, one frame (pallas_trace, gather="onehot"):
@@ -513,24 +564,27 @@ extern "C" int tpt_trace_onehot(
     int width, int height, int n_rows, int row0, int frame, int spp, int ray_depth,
     int jitter_center, int russian_roulette, float* radiance, float* miss_dir,
     float* miss_thr, int32_t* ray_count, int64_t* seed, void* stream) {
-  return launch<true, false>(sphere_pos_radius, nullptr, cuboid_min, cuboid_max, nullptr, table,
-                             EnvTable{nullptr, 0}, num_spheres, num_cuboids, camera_host, width,
-                             height, n_rows, row0, frame, 1, 1, spp, ray_depth, jitter_center,
-                             russian_roulette, radiance, miss_dir, miss_thr, ray_count, seed,
-                             stream);
+  return launch<true, false, false>(sphere_pos_radius, nullptr, cuboid_min, cuboid_max, nullptr,
+                                    table, EnvTable{nullptr, 0}, num_spheres, num_cuboids,
+                                    camera_host, width, height, n_rows, row0, frame, 1, 1, spp,
+                                    ray_depth, jitter_center, russian_roulette, radiance, miss_dir,
+                                    miss_thr, ray_count, seed, stream);
 }
 
 // out: the blocks per SM that cudaOccupancyMaxActiveBlocksPerMultiprocessor
 // gives each instantiation at its launch bound, [select, one-hot table,
-// environment] (no launch).
+// environment, environment with the bf16 table] (no launch).
 extern "C" int tpt_trace_layout(int* blocks_per_sm) {
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks_per_sm[0], trace_progressive_kernel<false, false>, kBlock, 0);
+      &blocks_per_sm[0], trace_progressive_kernel<false, false, false>, kBlock, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm[1], trace_progressive_kernel<true, false>, kBlock, 0);
+        &blocks_per_sm[1], trace_progressive_kernel<true, false, false>, kBlock, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm[2], trace_progressive_kernel<false, true>, kBlock, 0);
+        &blocks_per_sm[2], trace_progressive_kernel<false, true, false>, kBlock, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm[3], trace_progressive_kernel<false, true, true>, kBlock, 0);
   return static_cast<int>(err);
 }

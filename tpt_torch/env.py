@@ -7,8 +7,8 @@ default and the opt-in seamless pad ring of the JAX package.
 
 The render path fetches through :func:`pack_block_table` /
 :func:`sample_environment_blocked` (one 12-float row per tap); the planar
-sampler is its reference and gives bit-identical values.  Only the f32
-table is ported; the bf16 table waits for a measurement that asks for it.
+sampler is its reference and gives bit-identical values.  The opt-in bf16
+table (``pack_block_table(dtype=torch.bfloat16)``) halves the row.
 """
 
 from __future__ import annotations
@@ -139,13 +139,21 @@ def sample_environment_planar(faces, direction3, seamless: bool = False):
     return torch.stack([channel(0), channel(1), channel(2)])
 
 
-def pack_block_table(faces, seamless: bool = False) -> torch.Tensor:
+def pack_block_table(faces, dtype=torch.float32, seamless: bool = False) -> torch.Tensor:
     """Precompute the render-path environment table: f32[6*(S+2)^2, 12].
 
     Row ``(face*(S+2) + y0)*(S+2) + x0`` holds the full bilinear footprint
     of the tap whose top-left padded texel is (y0, x0):
     ``[t00.rgb, t01.rgb, t10.rgb, t11.rgb]``, so a lookup is one row
-    gather.  Rebuilt only when the environment changes."""
+    gather.  Rebuilt only when the environment changes.
+
+    ``dtype=torch.bfloat16`` halves the row to 24 bytes: the 12 texels are
+    rounded to bf16 (to nearest, ties to even) and packed in pairs into f32
+    words, f32[6*(S+2)^2, 6], value ``2j`` in the low 16 bits of word ``j``
+    and value ``2j + 1`` in the high 16 bits, bit for bit as
+    tpt.env.pack_block_table packs them.  Opt-in: the texels keep an 8-bit
+    mantissa (~0.4% relative), outside the f32 parity of the planar
+    sampler."""
     padded = pad_faces_for_sampling(faces, seamless=seamless)
     pad = padded.shape[1]
     # neighbor-at-clamp: the last row/col duplicates itself; it is never
@@ -154,7 +162,13 @@ def pack_block_table(faces, seamless: bool = False) -> torch.Tensor:
     down = torch.cat([padded[:, 1:], padded[:, -1:]], dim=1)
     downright = torch.cat([down[:, :, 1:], down[:, :, -1:]], dim=2)
     blocks = torch.cat([padded, right, down, downright], dim=-1)
-    return blocks.reshape(6 * pad * pad, 12).contiguous()
+    blocks = blocks.reshape(6 * pad * pad, 12).contiguous()
+    if dtype == torch.bfloat16:
+        # little-endian: the even column of each pair lands in the low half
+        return blocks.to(torch.bfloat16).view(torch.float32)
+    if dtype != torch.float32:
+        raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+    return blocks
 
 
 def env_size_from_table(table) -> int:
@@ -166,14 +180,19 @@ def env_size_from_table(table) -> int:
 def sample_environment_blocked(table, direction3):
     """Bilinear cubemap lookup from a :func:`pack_block_table` table.
 
-    ``direction3``: f32[3, *batch].  Returns f32[3, *batch], bit-identical
-    to :func:`sample_environment_planar` on the same faces (same texels,
-    same weights, same operation order)."""
+    ``direction3``: f32[3, *batch].  Returns f32[3, *batch].  For an f32
+    table, bit-identical to :func:`sample_environment_planar` on the same
+    faces (same texels, same weights, same operation order).  A bf16 table
+    (6 words a row) is fetched at its narrow width and its texels are
+    widened to f32 after the row fetch, exactly (a 16-bit shift); the
+    blend is then the f32 table's."""
     size = env_size_from_table(table)
     pad = size + 2
     face, fx, fy, x0, y0 = _bilinear_taps(size, direction3)
     rows = ((face * pad + y0) * pad + x0).long()
     block = table[rows.reshape(-1)]
+    if block.shape[1] == 6:   # bf16 pairs packed in f32 words
+        block = block.view(torch.bfloat16).to(torch.float32)
     batch = rows.shape
 
     def channel(c):

@@ -148,22 +148,24 @@ def make_scene_scan_fn(scene, counts: Tuple[int, int] | None = None):
         best_idx = torch.full(batch, -1, dtype=torch.int32, device=origin.device)
         best_inside = torch.zeros(batch, dtype=torch.bool, device=origin.device)
 
-        def consider(t1, t2, ok, idx):
+        # out of place, so that torch.func.vmap can batch the fold
+        def consider(t1, t2, ok, idx, best_t, best_idx, best_inside):
             cond = ok & (t2 > 0.0) & (t1 < best_t)
             t = smallest_positive(t1, t2)
-            best_inside.copy_(torch.where(cond, t == t2, best_inside))
-            best_idx.masked_fill_(cond, idx)
-            best_t.copy_(torch.where(cond, t, best_t))
+            return (torch.where(cond, t, best_t), torch.where(cond, idx, best_idx),
+                    torch.where(cond, t == t2, best_inside))
 
         for i in range(ns):
             row = scene.sphere_pos_radius[i]
             t1, t2, ok = ray_sphere(origin, direction, row[:3].view(col), row[3])
-            consider(t1, t2, ok, i)
+            best_t, best_idx, best_inside = consider(t1, t2, ok, i, best_t, best_idx,
+                                                     best_inside)
         for i in range(nc):
             t1, t2, ok = ray_cuboid(origin, direction,
                                     scene.cuboid_min[i].view(col),
                                     scene.cuboid_max[i].view(col))
-            consider(t1, t2, ok, MAX_SPHERES + i)
+            best_t, best_idx, best_inside = consider(t1, t2, ok, MAX_SPHERES + i, best_t,
+                                                     best_idx, best_inside)
         # found-check via T != FLOAT_MAX — the shader's convention
         # (compute.glsl:257), kept identical in every implementation
         return best_t != FLOAT_MAX, best_idx, best_t, best_inside
@@ -486,7 +488,7 @@ def _check_jitter(jitter: str):
 def trace_paths(trace_fn: TraceFn, cam: CameraParams,
                 px, py, width: int, height: int, frame,
                 ray_depth: int, spp: int, jitter: str = "corner",
-                russian_roulette: bool = True) -> TraceResult:
+                russian_roulette: bool = True, early_exit: bool = True) -> TraceResult:
     """Full per-pixel sampling loop (compute.glsl:101-130), environment
     fetch deferred.  ``px``/``py`` are integer pixel coords (GL convention:
     y bottom-up) of any batch shape.
@@ -498,7 +500,9 @@ def trace_paths(trace_fn: TraceFn, cam: CameraParams,
     identical and differ only in float rounding order.
 
     Bounces stop early once every lane is dead (Russian roulette keeps
-    E[bounces] far below ray_depth); that changes no result."""
+    E[bounces] far below ray_depth); that changes no result.
+    ``early_exit=False`` runs every bounce: the check reads the lanes on
+    the host, which torch.func.vmap cannot batch."""
     _check_jitter(jitter)
     seed = rng.pixel_seed(px, py, frame)
     fpx = px.to(torch.float32)
@@ -518,7 +522,7 @@ def trace_paths(trace_fn: TraceFn, cam: CameraParams,
                           alive=torch.ones_like(ray_count, dtype=torch.bool),
                           miss_dir=zero_v3, miss_thr=zero_v3, ray_count=ray_count)
         for _bounce in range(ray_depth):
-            if _bounce > 0 and not bool(state.alive.any()):
+            if early_exit and _bounce > 0 and not bool(state.alive.any()):
                 break
             state = bounce_step(state, trace_fn, russian_roulette)
 

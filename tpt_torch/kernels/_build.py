@@ -50,10 +50,14 @@ ENTRY_POINTS = {
     # environment table and its face size, 3 output pointers, the stream
     "tpt_trace_progressive_env": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11 + [_P, _I]
                                   + [_P] * 3 + [_P]),
+    # the same, the environment table in its bf16 form
+    "tpt_trace_progressive_env_bf16": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11
+                                       + [_P, _I] + [_P] * 3 + [_P]),
     # 3 geometry pointers, the table, 2 counts, the host camera pointer,
     # 9 ints, 5 output pointers, the stream
     "tpt_trace_onehot": ("trace.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 9 + [_P] * 5 + [_P]),
-    # out: blocks per SM of the select, table and environment kernels (no launch)
+    # out: blocks per SM of the select, table, environment and bf16-environment
+    # kernels (no launch)
     "tpt_trace_layout": ("trace.cu", [_P]),
     # 4 scene/table pointers, 2 counts, the device cam20 pointer, 11 ints
     # (the last the ablate flags), the tape's 3 pointers, the stream

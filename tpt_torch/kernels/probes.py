@@ -17,8 +17,9 @@ f32[128, 32], g f32[N, 128] (the harness passes g as x too), and returns
 the probe's output (:func:`output_shape`).  For CPU tensors it runs its
 plain version (``<name>_plain``); for CUDA tensors it launches its kernel
 or raises (ValueError for inputs the kernel does not take, among them a g,
-or for the scatter an idx, that does not start on a 16-byte boundary: the
-scatter and elementwise kernels load 16 bytes at a time).
+or for the gather and the scatter an idx, that does not start on a 16-byte
+boundary: every probe kernel loads 16 bytes at a time).  The inputs' shape,
+[N, 128], holds a multiple of 4 elements.
 ``PROBE_LAUNCHES[name]`` counts each probe's kernel launches.
 """
 
@@ -191,8 +192,8 @@ def _ready(name, idx, table, g) -> int:
 
 
 def _aligned(name, **ptrs):
-    """The 16-byte loads of the scatter and elementwise kernels need each
-    input to start on a 16-byte boundary."""
+    """The kernels' 16-byte loads need each input to start on a 16-byte
+    boundary."""
     for what, ptr in ptrs.items():
         if ptr % 16:
             raise ValueError(f"probe {name}: {what} must start on a 16-byte boundary for the "
@@ -206,9 +207,12 @@ def _launched(name: str, entry: str, err: int):
 
 
 def _gather(name, idx, table, g, stream):
+    pi = idx.data_ptr()
+    if pi % 16:
+        _aligned(name, idx=pi)
     out = torch.empty_like(g)
-    err = _build.load_library().tpt_probe_gather(idx.data_ptr(), table.data_ptr(), K, 0,
-                                                 g.numel(), out.data_ptr(), stream)
+    err = _build.load_library().tpt_probe_gather(pi, table.data_ptr(), K, 0, g.numel(),
+                                                 out.data_ptr(), stream)
     _launched(name, "tpt_probe_gather", err)
     return out
 

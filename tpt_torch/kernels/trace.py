@@ -8,7 +8,9 @@ JAX package's forward trace:
     ``env_table`` (a tpt_torch.env.pack_block_table table) it launches the
     kernel's environment mode, which looks the environment up when a path
     escapes and adds it to ``rad_sum``, and writes no miss slots: the block
-    path of tpt_torch.kernels.render.progressive_frames;
+    path of tpt_torch.kernels.render.progressive_frames.  The table may be
+    the f32 one or the opt-in bf16 one (``--env-bf16``), each read by its
+    own instantiation of the mode;
   * :func:`trace` — tpt.kernels.trace.pallas_trace, one frame; the same
     kernel at ``n_frames=1`` with the outputs renamed.  Both of its winner
     gathers are ported: ``gather="select"`` (the default) reads the
@@ -24,7 +26,8 @@ CUDA device they launch the kernel or raise.  There is no fallback from
 the device to the plain version.  ``LAUNCHES`` counts kernel launches, so
 a run can show that its main path went through the kernel;
 ``ONEHOT_LAUNCHES`` and ``ENV_LAUNCHES`` count those of them made in the
-table mode and in the environment mode.
+table mode and in the environment mode, ``ENV_BF16_LAUNCHES`` those of the
+environment mode with a bf16 table.
 
 Keyword arguments are those of the JAX wrappers.  ``counts`` (static
 primitive counts there) is accepted and bounds the scan like the scene's
@@ -49,6 +52,7 @@ from ..integrator import trace_progressive as _integrator_trace_progressive
 LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
 ENV_LAUNCHES = 0
+ENV_BF16_LAUNCHES = 0
 GATHERS = ("select", "onehot")
 
 _SCENE_SHAPES = {
@@ -77,21 +81,31 @@ def _check_gather(gather: str, counts):
         raise ValueError("gather='onehot' requires static counts")
 
 
-def _check_env_table(env_table, device) -> int:
-    """The face size S of a pack_block_table table, or ValueError unless it
-    is a contiguous f32[6 (S + 2)^2, 12] on ``device`` on a 16-byte
-    boundary (the kernel reads each 48-byte row as three 16-byte loads)."""
+# a pack_block_table row's words -> the boundary its rows start on: the
+# kernel reads an f32 row (48 bytes) as three 16-byte loads and a bf16 row
+# (24 bytes, 12 bf16 values packed in pairs) as three 8-byte loads
+ENV_ROW_ALIGN = {12: 16, 6: 8}
+
+
+def _check_env_table(env_table, device) -> Tuple[int, bool]:
+    """(face size S, whether the table is bf16) of a pack_block_table
+    table, or ValueError unless it is a contiguous f32[6 (S + 2)^2, 12]
+    on a 16-byte boundary, or its bf16 form f32[6 (S + 2)^2, 6] on an
+    8-byte boundary, on ``device``."""
     t = env_table
     size = env_size_from_table(t) if t.dim() == 2 and t.shape[0] >= 6 else 0
-    if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 12 or size < 1
-            or t.shape[0] != 6 * (size + 2) ** 2 or not t.is_contiguous()):
-        raise ValueError(f"env_table must be a contiguous f32[6 (S + 2)^2, 12] "
-                         f"(pack_block_table), got {t.dtype}{list(t.shape)}")
+    if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] not in ENV_ROW_ALIGN
+            or size < 1 or t.shape[0] != 6 * (size + 2) ** 2 or not t.is_contiguous()):
+        raise ValueError(f"env_table must be a contiguous f32[6 (S + 2)^2, 12] or its bf16 "
+                         f"form f32[6 (S + 2)^2, 6] (pack_block_table), got "
+                         f"{t.dtype}{list(t.shape)}")
     if t.device != device:
         raise ValueError(f"env_table is on {t.device}, the scene on {device}")
-    if t.data_ptr() % 16 != 0:
-        raise ValueError("env_table must start on a 16-byte boundary")
-    return size
+    align = ENV_ROW_ALIGN[t.shape[1]]
+    if t.data_ptr() % align != 0:
+        raise ValueError(f"env_table with {t.shape[1]}-word rows must start on a {align}-byte "
+                         f"boundary")
+    return size, t.shape[1] == 6
 
 
 def pixel_band(width: int, height: int, n_rows: int, row0: int, device):
@@ -163,7 +177,7 @@ def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch
 def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, *,
             width, height, ray_depth, spp, n_frames, n_valid, counts, n_rows, row0,
             jitter, rr, gather="select", env_table=None) -> ProgressiveTraceResult:
-    global LAUNCHES, ONEHOT_LAUNCHES, ENV_LAUNCHES
+    global LAUNCHES, ONEHOT_LAUNCHES, ENV_LAUNCHES, ENV_BF16_LAUNCHES
     from ._build import load_library
 
     device = scene.device
@@ -186,7 +200,7 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
                              f"got {ns}+{nc}")
         table = build_attr_table(scene, (ns, nc)).detach().contiguous()
     if env_table is not None:
-        env_size = _check_env_table(env_table, device)
+        env_size, env_bf16 = _check_env_table(env_table, device)
 
     f32 = dict(dtype=torch.float32, device=device)
     rad_sum = torch.empty((3, n_rows, width), **f32)
@@ -207,8 +221,8 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if env_table is not None:
-            entry = "tpt_trace_progressive_env"
-            err = lib.tpt_trace_progressive_env(
+            entry = "tpt_trace_progressive_env" + ("_bf16" if env_bf16 else "")
+            err = getattr(lib, entry)(
                 *scene_ptrs, ns, nc, cam.data_ptr(), *band, env_table.data_ptr(), env_size,
                 rad_sum.data_ptr(), ray_count.data_ptr(), seed.data_ptr(), stream)
         elif gather == "onehot":
@@ -231,6 +245,7 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
     LAUNCHES += 1
     ONEHOT_LAUNCHES += int(gather == "onehot")
     ENV_LAUNCHES += int(env_table is not None)
+    ENV_BF16_LAUNCHES += int(env_table is not None and env_bf16)
     return ProgressiveTraceResult(rad_sum=rad_sum, miss_dir=miss_dir, miss_thr=miss_thr,
                                   ray_count=ray_count, seed=seed)
 
@@ -250,7 +265,8 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
     zero.  Row-band mode: ``n_rows`` rows from traced row ``row0``.
 
     ``env_table``: a contiguous pack_block_table table on the scene's
-    device, on a 16-byte boundary (else ``ValueError``).  Each sample then
+    device, f32 on a 16-byte boundary or bf16 on an 8-byte boundary (else
+    ``ValueError``).  Each sample then
     adds ``radiance + miss_thr * sample_environment_blocked(env_table,
     miss_dir)`` to ``rad_sum`` when it ends, and miss_dir / miss_thr are
     None."""

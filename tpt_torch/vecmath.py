@@ -39,12 +39,21 @@ def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
     return g
 
 
+# The two Functions below set their context in setup_context and let
+# torch.func generate their vmap rule, so the plain integrator runs under
+# torch.func.vmap (tpt_torch.reference.render_fields_vmap) and forward-mode
+# transforms; the forward and backward arithmetic is unchanged.
 class _MinMax(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, a, b, is_max):
-        ans = torch.maximum(a, b) if is_max else torch.minimum(a, b)
-        ctx.save_for_backward(a, b, ans)
-        return ans
+    def forward(a, b, is_max):
+        return torch.maximum(a, b) if is_max else torch.minimum(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, _ = inputs
+        ctx.save_for_backward(a, b, output)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,10 +88,15 @@ def min_const(a: torch.Tensor, c) -> torch.Tensor:
 
 
 class _SqrtClampedGrad(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return torch.sqrt(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
