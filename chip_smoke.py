@@ -32,6 +32,19 @@ drives the port's two paths through their entry points:
   * the one-hot gather: ``trace(..., gather="onehot")`` at the four
     one-frame shapes, bit for bit against the select kernel and against
     its plain version;
+  * the sharded paths of ``tpt_torch.parallel`` in one gloo world of 4
+    ranks on the card (1920x1080, depth 13, the 256^2 atmosphere): the
+    frame renderer at (dp=4, sp=1) and (dp=2, sp=2) bit for bit against
+    one process, the 30-frame block (two in a row) against
+    ``progressive_frames``, the train step at (dp=2, sp=1) and (2, 2),
+    roulette on and off, one and two gradient bands, SGD and one clipped
+    Adam step, against a world of one; a world of one on NCCL and
+    ``tpt_torch.parallel.dryrun(4)``; the times of ranks sharing one card
+    are contention, not scaling;
+  * the viewer's session (``tpt_torch.interactive.ViewerSession``) at
+    1080p: two 30-frame draws bit for bit against ``progressive_frames``,
+    a reset, a pick, a screenshot, ms a draw; the native bridge, whether it
+    built, and its std140 pack and PCG chain against the Python versions;
   * the backward-design probes through ``tpt_torch.bwd_probes``, then each
     probe's kernel against its plain version and one PyTorch call for the
     same function, at the harness's GRID = 100 and at a 1080p-sized 1013:
@@ -1176,6 +1189,384 @@ def probe_phases(dev, card):
 
 
 # the line of each Pallas probe's definition in benchmarks/exp_bwd_probes.py
+DIST_RANKS = 4   # ranks sharing the one card in the dist phases
+
+
+def table_groups(sphere, cuboid, counts):
+    """The material tables' gradient entries by lane: each of the 16
+    material lanes over the live sphere rows and over the live cuboid rows,
+    and the padded rows."""
+    ns, nc = counts
+    groups = {f"sphere lane {c}": sphere[:ns, c] for c in range(sphere.shape[1])}
+    groups.update({f"cuboid lane {c}": cuboid[:nc, c] for c in range(cuboid.shape[1])})
+    groups["padding"] = torch.cat([sphere[ns:].reshape(-1), cuboid[nc:].reshape(-1)])
+    return groups
+
+
+def compare_tables(got, want, counts, rtol=1e-3, floor=1e-3):
+    """compare_grads' bar on the material tables' gradients: each lane
+    within rtol and atol = rtol x its scale (its largest magnitude in
+    ``want``, floored at ``floor`` x the tables' largest).  Returns (the
+    worst error over scale, [lanes beyond the bar])."""
+    g_groups, w_groups = table_groups(*got, counts), table_groups(*want, counts)
+    top = max(float(w.abs().max()) for w in want)
+    worst, failed = 0.0, []
+    for name, w in w_groups.items():
+        d = (g_groups[name] - w).abs()
+        scale = max(float(w.abs().max()) if w.numel() else 0.0, floor * top, 1e-30)
+        if not bool((d <= rtol * scale + rtol * w.abs()).all()):
+            failed.append(f"{name}: max abs err {float(d.max()):.3g}, scale {scale:.3g}")
+        worst = max(worst, float(d.max()) / scale if d.numel() else 0.0)
+    return worst, failed
+
+
+def compare_adam(got, want, sgd_step, rtol=1e-3, floor=1e-3):
+    """One clipped-Adam step's update against the world of one's, on the
+    entries whose gradient (``sgd_step``, the same world's SGD step) is
+    above ``floor`` x the tables' largest: a first Adam step is about lr x
+    the gradient's sign, which rounding noise flips where the gradient is
+    near 0.  Returns the worst relative error there."""
+    top = max(float(t.abs().max()) for t in sgd_step)
+    worst = 0.0
+    for g, w, ref in zip(got, want, sgd_step):
+        live = ref.abs() > floor * top
+        d = (g - w).abs()[live]
+        if not bool((d <= rtol * w.abs()[live]).all()):
+            raise AssertionError(f"Adam step: max abs err {float(d.max()):.3g}")
+        worst = max(worst, float((d / w.abs()[live]).max()) if d.numel() else 0.0)
+    return worst
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host-clock ms of one ``fn()`` over ``reps`` calls after a warm one,
+    synchronised at both ends (the dist runs' own clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sum_launches(results, job: int, name: str) -> int:
+    return sum(r[job]["launches"][name] for r in results if r[job] is not None)
+
+
+def dist_phases(dev, card, faces):
+    """The sharded paths of tpt_torch.parallel in one gloo world of 4
+    ranks, all on cuda:0 (the kernels built once, by this process), held to
+    this process's single-device runs: dist-render, dist-progressive,
+    dist-train.  Each rank zeroes its kernel counters just before it drives
+    a job and reads them just after.  The times are four processes sharing
+    one card's SMs: contention, not scaling.  Returns the forward kernel's
+    and each backward kernel's launches on these paths."""
+    from tpt_torch import CameraConfig, RenderConfig, demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.env import pack_block_table
+    from tpt_torch.integrator import apply_environment_blocked
+    from tpt_torch.kernels import trace as K
+    from tpt_torch.kernels import trace_grad
+    from tpt_torch.kernels.render import progressive_frames
+    from tpt_torch.optim import clipped_adam
+    from tpt_torch.parallel import launch, make_dist_renderer, make_mesh, make_train_step
+    from tpt_torch.parallel.runs import run_jobs
+    from tpt_torch.progressive import init_accumulator
+
+    frame_cfg = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1)
+    layouts = ((4, 1), (2, 2))
+    train_layouts = ((2, 1), (2, 2))
+    jobs = [dict(kind="render", dp=dp, sp=sp, cfg=frame_cfg, frames=[0], reps=5)
+            for dp, sp in layouts]
+    jobs += [dict(kind="progressive", dp=dp, sp=sp, cfg=frame_cfg, n_frames=BLOCK, blocks=2,
+                  reps=3) for dp, sp in layouts]
+    train = [dict(kind="train", dp=dp, sp=sp, cfg=frame_cfg, counts=(48, 7), rr=rr,
+                  psum_bands=bands, lr=0.1, reps=5 if rr and bands == 1 else 0)
+             for dp, sp in train_layouts for rr in (True, False) for bands in (1, 2)]
+    train.append(dict(kind="train", dp=2, sp=2, cfg=frame_cfg, counts=(48, 7), rr=True,
+                      adam=0.01))
+    jobs += train
+    setup = {"scene": "demo", "camera": {}, "env": faces.cpu().numpy(), "device": "cuda"}
+    t0 = time.perf_counter()
+    results = launch(run_jobs, DIST_RANKS, setup, jobs, backend="gloo", device="cuda:0",
+                     timeout=600)
+    wall = time.perf_counter() - t0
+    first = results[0]
+
+    scene, cam, cfg = demo_scene().build(dev), CameraConfig(), RenderConfig(**frame_cfg)
+    focal, ap = cam.focal_length, cam.aperture_diameter
+    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    table = pack_block_table(faces)
+    fwd = sum(sum_launches(results, j, "LAUNCHES") for j in range(len(jobs)))
+    tape = sum(sum_launches(results, j, "TAPE_LAUNCHES") for j in range(len(jobs)))
+    adjoint = sum(sum_launches(results, j, "ADJOINT_LAUNCHES") for j in range(len(jobs)))
+
+    # dist-render: (4, 1) against one whole-frame trace + the blocked fetch;
+    # (2, 2) against groups 0 and 1 rendered here and averaged
+    res = K.trace(scene, ip, iv, 0, focal, ap, **frame_cfg)
+    whole = torch.movedim(apply_environment_blocked(res, table, 1), 0, -1)
+    groups2 = make_dist_renderer(make_mesh(), cfg, n_sample_groups=2)
+    want2, rays2 = groups2(scene, faces, ip, iv, focal, ap, 0)
+    single = make_dist_renderer(make_mesh(), cfg)
+    single_ms = wall_ms(lambda: single(scene, faces, ip, iv, focal, ap, 0), 5)
+    parts = []
+    for j, ((dp, sp), want, rays) in enumerate(zip(layouts, (whole, want2),
+                                                   (int(res.ray_count.sum()), int(rays2)))):
+        got = torch.from_numpy(first[j]["images"][0]).to(dev)
+        if not torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32)) \
+                or first[j]["rays"][0] != rays:
+            raise AssertionError(f"dist-render dp={dp} sp={sp}: the image or the ray count "
+                                 f"({first[j]['rays'][0]} against {rays}) differs")
+        if sum_launches(results, j, "LAUNCHES") != DIST_RANKS:
+            raise AssertionError(f"dist-render dp={dp} sp={sp}: "
+                                 f"{sum_launches(results, j, 'LAUNCHES')} kernel launches")
+        parts.append(f"dp={dp} sp={sp}: bit-equal, rays {rays}, {first[j]['ms']:.2f} ms a frame")
+    phase("dist-render", f"{WIDTH}x{HEIGHT} depth {DEPTH} spp 1 DoF, 256^2 atmosphere, "
+          f"{DIST_RANKS} gloo ranks on cuda:0 ({wall:.1f} s for the world's phases): "
+          + "; ".join(parts) + f"; one process {single_ms:.2f} ms a frame; the ranks share one "
+          f"card, so these are contention, not scaling ({card})")
+
+    # dist-progressive: two blocks against progressive_frames in one process
+    acc = init_accumulator(HEIGHT, WIDTH, dev)
+    blocks = []
+    for b in range(2):
+        acc, rays = progressive_frames(acc, scene, table, ip, iv, b * BLOCK, focal, ap,
+                                       width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1,
+                                       n_frames=BLOCK)
+        blocks.append((acc.image.clone(), int(rays)))
+    spare = init_accumulator(HEIGHT, WIDTH, dev)
+    block_ms = wall_ms(lambda: progressive_frames(
+        spare, scene, table, ip, iv, 0, focal, ap, width=WIDTH, height=HEIGHT, ray_depth=DEPTH,
+        spp=1, n_frames=BLOCK), 3)
+    parts = []
+    for j, (dp, sp) in enumerate(layouts, start=len(layouts)):
+        err = 0.0
+        for b, (want, rays) in enumerate(blocks):
+            got = torch.from_numpy(first[j]["images"][b]).to(dev)
+            if first[j]["rays"][b] != rays:
+                raise AssertionError(f"dist-progressive dp={dp} sp={sp} block {b}: rays "
+                                     f"{first[j]['rays'][b]} against {rays}")
+            if sp == 1 and not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"dist-progressive dp={dp} block {b}: not bit-equal")
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            err = max(err, float((got - want).abs().max()))
+        if sum_launches(results, j, "ENV_LAUNCHES") != 2 * DIST_RANKS:
+            raise AssertionError(f"dist-progressive dp={dp} sp={sp}: "
+                                 f"{sum_launches(results, j, 'ENV_LAUNCHES')} environment-mode "
+                                 f"launches (want {2 * DIST_RANKS})")
+        parts.append(f"dp={dp} sp={sp}: {'bit-equal' if sp == 1 else f'max abs err {err:.3g}'}, "
+                     f"rays exact, {first[j]['ms']:.2f} ms a block")
+    phase("dist-progressive", f"{WIDTH}x{HEIGHT} {BLOCK}-frame blocks x 2, {DIST_RANKS} gloo "
+          f"ranks on cuda:0: " + "; ".join(parts) + f"; one process {block_ms:.2f} ms a block "
+          f"(ranks sharing one card: contention, not scaling) ({card})")
+
+    # dist-train: each step against a world of one with the same sample
+    # groups and the same row bands (psum_bands = dp x the job's bands), so
+    # that both make the same backward launches.  trace_grad's finite filter
+    # zeroes a non-finite table entry per launch, so another split into
+    # bands is another result wherever a pixel's cotangent is not finite
+    # (the whole-frame line below counts those entries)
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    args = (faces, ip, iv, focal, ap, 0, target)
+
+    def single_step(groups, rr, bands, adam=None):
+        opt = clipped_adam(lr=adam) if adam else None
+        step = make_train_step(make_mesh(), cfg, n_sample_groups=groups, counts=(48, 7),
+                               russian_roulette=rr, optimizer=opt, psum_bands=bands)
+        state = opt.init((scene.sphere_material, scene.cuboid_material)) if opt else 0.1
+        new_scene, *rest = step(scene, *args, state)
+        return ((scene.sphere_material - new_scene.sphere_material,
+                 scene.cuboid_material - new_scene.cuboid_material), float(rest[-1]), step)
+
+    singles, parts = {}, []
+    for j, job in enumerate(train, start=2 * len(layouts)):
+        groups, rr, adam = job["sp"], job["rr"], job.get("adam")
+        bands = job["dp"] * job.get("psum_bands", 1)
+        key = (groups, rr, bands, adam)
+        if key not in singles:
+            singles[key] = single_step(groups, rr, bands, adam)
+        want, want_loss, _ = singles[key]
+        got = first[j]
+        got_step = tuple(torch.from_numpy(s - g).to(dev) for s, g in
+                         zip(got["start"], (got["sphere_material"], got["cuboid_material"])))
+        if abs(got["losses"][0] - want_loss) > 1e-5 * abs(want_loss):
+            raise AssertionError(f"dist-train {job}: loss {got['losses'][0]} against "
+                                 f"{want_loss}")
+        if adam:
+            worst = compare_adam(got_step, want, singles[(groups, rr, bands, None)][0])
+        else:   # an SGD step is lr x the gradient
+            worst, failed = compare_tables(tuple(t / 0.1 for t in got_step),
+                                           tuple(t / 0.1 for t in want), (48, 7))
+            if failed:
+                raise AssertionError(f"dist-train {job}: " + "; ".join(failed))
+        tapes = sum_launches(results, j, "TAPE_LAUNCHES")
+        if tapes != job["dp"] * job["sp"] * job.get("psum_bands", 1):
+            raise AssertionError(f"dist-train {job}: {tapes} tape kernel launches")
+        what = "Adam" if adam else f"rr {'on' if rr else 'off'} bands {job['psum_bands']}"
+        parts.append(f"dp={job['dp']} sp={job['sp']} {what}: loss {got['losses'][0]:.6f}, "
+                     f"worst err/scale {worst:.2g}"
+                     + (f", {got['ms']:.2f} ms a step" if got.get("ms") else ""))
+    single_ms, off = {}, []
+    for groups in (1, 2):
+        whole, whole_loss, step = single_step(groups, True, 1)
+        zeroed = int(trace_grad.LAST_ZEROED)   # the whole frame's last launch
+        single_ms[groups] = wall_ms(lambda: step(scene, *args, 0.1), 5)
+        banded = singles[(groups, True, 2, None)][0]
+        _, failed = compare_tables(tuple(t / 0.1 for t in whole),
+                                   tuple(t / 0.1 for t in banded), (48, 7))
+        off.append(f"{groups} group{'s' if groups > 1 else ''}: {len(failed)} lanes beyond the "
+                   f"bar ({', '.join(f.split(':')[0] for f in failed) or 'none'}), the whole "
+                   f"frame's launch zeroed {zeroed} entries")
+    phase("dist-train", f"make_train_step(backend='kernel') {WIDTH}x{HEIGHT} depth {DEPTH} spp "
+          f"1 counts (48, 7), SGD lr 0.1, {DIST_RANKS} gloo ranks on cuda:0, each held to a "
+          f"world of one with the same groups and row bands (loss rtol 1e-5, tables' "
+          f"gradients at rtol 1e-3, floor 1e-3): " + "; ".join(parts) + "; one process "
+          + ", ".join(f"{ms:.2f} ms a step ({g} group{'s' if g > 1 else ''}, whole frame)"
+                      for g, ms in single_ms.items())
+          + f" (ranks sharing one card: contention, not scaling) ({card})")
+    phase("dist-train", "the whole-frame world of one (psum_bands=1) against the same in two "
+          "row bands, rr on: " + "; ".join(off) + " (trace_grad's finite filter zeroes a "
+          "non-finite entry per launch)")
+    return fwd, {"tape": tape, "adjoint": adjoint}
+
+
+def nccl_phase(dev, card):
+    """A world of one on the NCCL backend: the sharded renderer at 1080p
+    equals the single process bit for bit and an all-reduce of a CUDA
+    tensor runs through NCCL; then ``tpt_torch.parallel.dryrun(4)`` (gloo,
+    cuda:0).  Returns the forward kernel's launches."""
+    import contextlib
+    import io
+    from tpt_torch import CameraConfig, demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.env import constant_environment, pack_block_table
+    from tpt_torch.integrator import apply_environment_blocked
+    from tpt_torch.kernels import trace as K
+    from tpt_torch.parallel import dryrun, launch
+    from tpt_torch.parallel.runs import run_jobs
+
+    env = (0.3, 0.45, 0.6)
+    frame_cfg = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1)
+    jobs = [dict(kind="render", dp=1, sp=1, cfg=frame_cfg, frames=[0]),
+            dict(kind="all_reduce", dp=1, sp=1, cfg=frame_cfg)]
+    (got, reduced), = launch(run_jobs, 1, {"scene": "demo", "camera": {}, "env": env,
+                                           "device": "cuda"}, jobs, backend="nccl",
+                             device="cuda:0", timeout=300)
+    scene, cam = demo_scene().build(dev), CameraConfig()
+    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    res = K.trace(scene, ip, iv, 0, cam.focal_length, cam.aperture_diameter, **frame_cfg)
+    want = torch.movedim(apply_environment_blocked(
+        res, pack_block_table(constant_environment(env, device=dev)), 1), 0, -1)
+    image = torch.from_numpy(got["images"][0]).to(dev)
+    if not torch.equal(image.view(torch.int32), want.contiguous().view(torch.int32)) \
+            or got["rays"][0] != int(res.ray_count.sum()) or got["launches"]["LAUNCHES"] != 1:
+        raise AssertionError("dist-nccl: the world of one differs from the single process")
+    if reduced["backend"] != "nccl" or reduced["sum"] != [1.0] * 4 \
+            or not reduced["device"].startswith("cuda"):
+        raise AssertionError(f"dist-nccl: all_reduce {reduced}")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        dryrun(DIST_RANKS, device="cuda:0", backend="gloo")
+    dry = text.getvalue().strip().splitlines()
+    phase("dist-nccl", f"world of one, NCCL: make_dist_renderer {WIDTH}x{HEIGHT} bit-equal to "
+          f"the single process, 1 kernel launch; all_reduce of a {reduced['device']} tensor "
+          f"through {reduced['backend']}; dryrun({DIST_RANKS}) on cuda:0 (gloo), "
+          f"{time.perf_counter() - t0:.1f} s: " + " | ".join(dry))
+    return got["launches"]["LAUNCHES"]
+
+
+def viewer_phase(dev, card, K):
+    """The viewer's session on the card at 1080p: two 30-frame draws held
+    bit for bit to progressive_frames called directly, a held key resets
+    the accumulation, a pick at the window centre names what ``cli pick``
+    names, a screenshot; ms a draw (FrameStats) and frame_stats of one
+    frame.  Returns the forward kernel's launches of the two draws."""
+    import contextlib
+    import io
+    from tpt_torch import cli
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.interactive import FrameStats, ViewerSession
+    from tpt_torch.kernels.render import progressive_frames
+    from tpt_torch.progressive import init_accumulator
+    from tpt_torch.utils.profiling import frame_stats
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ses = ViewerSession(size=256, device="cuda", screenshot_dir=tmp)
+        ses.set_size(WIDTH, HEIGHT)
+        cam = ses.cam.to_config(ses.base_cam)
+        ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+        want = init_accumulator(HEIGHT, WIDTH, dev)
+        launches = 0
+        for b in range(2):
+            K.ENV_LAUNCHES = 0
+            disp = ses.render_one(BLOCK)
+            launches += K.ENV_LAUNCHES
+            want, rays = progressive_frames(want, ses.scene, ses.env_table, ip, iv, b * BLOCK,
+                                            cam.focal_length, cam.aperture_diameter,
+                                            width=WIDTH, height=HEIGHT,
+                                            ray_depth=ses.cfg.ray_depth, spp=ses.cfg.spp,
+                                            n_frames=BLOCK)
+            if not torch.equal(ses.acc.image.view(torch.int32), want.image.view(torch.int32)):
+                raise AssertionError(f"viewer: draw {b} differs from progressive_frames")
+        if launches != 2 or disp.shape != (HEIGHT, WIDTH, 3) or disp.dtype != np.uint8:
+            raise AssertionError(f"viewer: {launches} environment-mode launches in two draws "
+                                 f"(want 2), display {disp.shape} {disp.dtype}")
+        shot = ses.screenshot()
+        if not os.path.getsize(shot) > 0:
+            raise AssertionError("viewer: empty screenshot")
+        obj = ses.pick(WIDTH / 2, HEIGHT / 2)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.main(["pick", "--device", "cuda", "--x", "416", "--y", "416"])
+        pick = text.getvalue().strip().splitlines()[0]
+        if obj is None or f"object #{ses.builder.objects.index(obj)} " not in pick:
+            raise AssertionError(f"viewer: picked {obj} at the centre, cli pick says {pick}")
+        if not ses.tick(0.016, keys=("w",)) or ses.acc.frame != 0 or ses.samples_per_pixel:
+            raise AssertionError("viewer: a held key did not reset the accumulation")
+        stats = FrameStats(time.time())
+        t0 = time.time()
+        while time.time() - t0 < 1.0:
+            ses.render_one(1)
+            stats.note_frames(1, ses.cfg.spp)
+        stats.sample(time.time())
+        _, one = progressive_frames(init_accumulator(HEIGHT, WIDTH, dev), ses.scene,
+                                    ses.env_table, ip, iv, 0, cam.focal_length,
+                                    cam.aperture_diameter, width=WIDTH, height=HEIGHT,
+                                    ray_depth=ses.cfg.ray_depth, spp=ses.cfg.spp)
+        fs = frame_stats(lambda: ses.render_one(1), rays=int(one), pixels=WIDTH * HEIGHT)
+    phase("viewer", f"ViewerSession(size=256, device='cuda') -> set_size({WIDTH}, {HEIGHT}); "
+          f"render_one({BLOCK}) twice bit-equal to progressive_frames ({launches} "
+          f"environment-mode launches); a held key resets; the centre "
+          f"pick names {pick.split(' at ')[0].replace('picked: ', '')}, as cli pick; screenshot "
+          f"{os.path.basename(shot)}; one-frame draws {1e3 / max(stats.fps, 1e-9):.2f} ms "
+          f"(FrameStats, {stats.fps:.1f} draws/s incl. the uint8 copy); frame_stats "
+          f"{fs['ms_per_frame']:.2f} ms a frame, {fs['mrays_per_s']:.1f} Mrays/s ({card})")
+    return launches
+
+
+def native_phase():
+    """The native bridge: whether g++ and zlib built the library here, and
+    where they did, its std140 pack and PCG chain bit for bit against the
+    Python versions."""
+    from tpt_torch import demo_scene, native_bridge
+    from tpt_torch.scene import pack_std140
+
+    if not native_bridge.native_available():
+        phase("native", f"native library not built ({native_bridge.build_error()}); the "
+              f"Python versions run")
+        return
+    scene = demo_scene().build()
+    if native_bridge.pack_std140_native(scene).tobytes() != pack_std140(scene).tobytes():
+        raise AssertionError("native: pack_std140 differs from the Python version")
+    for seed in (1, 12345, 0xDEADBEEF):
+        if native_bridge.pcg_floats_native(seed, 64).tobytes() != \
+                native_bridge.pcg_floats(seed, 64).tobytes():
+            raise AssertionError(f"native: the PCG chain from {seed} differs")
+    phase("native", f"built {os.path.relpath(native_bridge.library_path(), REPO)}: "
+          f"pack_std140 and the PCG chain (3 seeds x 64 draws) bit-equal to the Python versions")
+
+
 PROBE_LINES = {"p1": 46, "p1t": 57, "p2": 73, "p3": 82, "p4": 94, "p5": 109, "p6": 126,
                "p7": 148, "p8": 168}
 
@@ -1395,11 +1786,20 @@ def main() -> int:
     onehot_launches, onehot_times = onehot_phases(dev, card, K)
     probe_kernels = probe_phases(dev, card)
 
+    # the sharded paths in worlds of ranks on this card, then the viewer and
+    # the native bridge
+    dist_launches, dist_grad_launches = dist_phases(dev, card, faces)
+    dist_launches += nccl_phase(dev, card)
+    viewer_launches = viewer_phase(dev, card, K)
+    native_phase()
+
     # one kernel serves both forward TPU kernels (pallas_trace_progressive at
     # :519 and pallas_trace at :298); its times are those of the render
     # path's launch, a 30-frame 1080p block in the environment mode, its
-    # launches those of the render path, the training path and the
-    # silhouette demos, its lane efficiency that of the block.  Its table
+    # launches those of the render path, the training path, the
+    # silhouette demos, the sharded paths (every rank's) and the viewer's
+    # draws, its lane efficiency that of the block; the backward kernels'
+    # launches those of the training path and the sharded train step.  Its table
     # mode (the one-hot gather) is timed per 1080p frame, its bf16
     # environment mode per block, each with its own path's launches.  No one PyTorch call computes a trace or its
     # backward: library_ms is null.
@@ -1408,7 +1808,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:519",
-        "launches": launches + train_launches + silhouette_launches,
+        "launches": (launches + train_launches + silhouette_launches + dist_launches
+                     + viewer_launches),
         "max_abs_err": max_err,
         "ms": times["block_ms"],
         "plain_ms": times["block_plain_ms"],
@@ -1434,7 +1835,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"tpt_torch/csrc/{source}",
         "replaces": "tpt/kernels/trace_grad.py:446",
-        "launches": grad_launches[kernel],
+        "launches": grad_launches[kernel] + dist_grad_launches[kernel],
         "max_abs_err": grad_err,
         "ms": grad_times["kernels"][kernel]["ms"],
         "plain_ms": grad_times["kernels"][kernel]["plain_ms"],

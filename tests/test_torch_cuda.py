@@ -721,3 +721,59 @@ def test_bf16_env_kernel_matches_plain_bit_for_bit(device):
     assert torch.equal(got.ray_count, f32.ray_count)
     rel = float((got.rad_sum - f32.rad_sum).abs().mean() / f32.rad_sum.abs().mean())
     assert 0.0 < rel < 2 ** -8
+
+
+def _world(n_ranks, jobs, backend, device):
+    """Run tpt_torch.parallel.runs.run_jobs on ``n_ranks`` local ranks of the
+    card, the kernels built once here first."""
+    from tpt_torch.kernels import _build
+    from tpt_torch.parallel import launch
+    from tpt_torch.parallel.runs import run_jobs
+    _build.load_library()
+    setup = {"scene": "demo", "camera": {}, "env": (0.3, 0.45, 0.6), "device": "cuda"}
+    return launch(run_jobs, n_ranks, setup, jobs, backend=backend, device=device, timeout=300)
+
+
+def _whole_frame(device, width, height):
+    from tpt_torch.integrator import apply_environment_blocked
+    cam = CameraConfig()
+    inv_p, inv_v, _ = camera_matrices(cam, width, height)
+    res = K.trace(demo_scene().build(device), inv_p, inv_v, 0, cam.focal_length,
+                  cam.aperture_diameter, width=width, height=height, ray_depth=13, spp=1)
+    table = pack_block_table(constant_environment((0.3, 0.45, 0.6), device=device))
+    return torch.movedim(apply_environment_blocked(res, table, 1), 0, -1), res
+
+
+@pytest.mark.parametrize("n_ranks,backend", [(2, "gloo"), (1, "nccl")])
+def test_dist_band_render_equals_the_whole_frame(device, n_ranks, backend):
+    """Two gloo ranks sharing cuda:0 (dp=2), or a world of one on NCCL: the
+    assembled image equals one whole-frame trace + the blocked fetch bit for
+    bit, and each rank launched the kernel once."""
+    job = dict(kind="render", dp=n_ranks, sp=1, cfg=dict(width=256, height=144, ray_depth=13,
+                                                         spp=1), frames=[0])
+    ranks = _world(n_ranks, [job, dict(job, kind="all_reduce")], backend, "cuda:0")
+    want, res = _whole_frame(device, 256, 144)
+    got = torch.from_numpy(ranks[0][0]["images"][0]).to(device)
+    assert torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32))
+    assert ranks[0][0]["rays"][0] == int(res.ray_count.sum())
+    assert [r[0]["launches"]["LAUNCHES"] for r in ranks] == [1] * n_ranks
+    assert ranks[0][1]["backend"] == backend and ranks[0][1]["sum"] == \
+        [float(sum(range(1, n_ranks + 1)))] * 4
+
+
+def test_viewer_render_one_matches_progressive_frames(device, tmp_path):
+    from tpt_torch.interactive import ViewerSession
+    ses = ViewerSession(size=96, env_name="constant", device="cuda",
+                        screenshot_dir=str(tmp_path))
+    cam = ses.cam.to_config(ses.base_cam)
+    inv_p, inv_v, _ = camera_matrices(cam, 96, 96)
+    want = init_accumulator(96, 96, device)
+    for b, n in enumerate((8, 8, 1)):
+        launches = K.LAUNCHES
+        disp = ses.render_one(n)
+        assert K.LAUNCHES == launches + 1
+        want, _ = progressive_frames(want, ses.scene, ses.env_table, inv_p, inv_v, 8 * b,
+                                     cam.focal_length, cam.aperture_diameter, width=96,
+                                     height=96, ray_depth=13, spp=1, n_frames=n)
+        assert torch.equal(ses.acc.image.view(torch.int32), want.image.view(torch.int32))
+    assert disp.shape == (96, 96, 3) and disp.dtype.name == "uint8"

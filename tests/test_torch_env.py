@@ -73,3 +73,33 @@ def test_constant_skybox_and_srgb():
                                np.asarray(jenv.srgb_to_linear(x)), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(tenv.bundled_skybox().numpy(),
                                np.asarray(jenv.bundled_skybox()), rtol=1e-6, atol=1e-7)
+
+
+def test_packed_face_uv_matches():
+    d = np.moveaxis(directions(), 0, -1)                # [..., 3]
+    jf, js, jt = jenv.cubemap_face_uv(jnp.asarray(d))
+    tf, ts, tt = tenv.cubemap_face_uv(torch.from_numpy(d))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("size", [1, 8])
+def test_packed_samplers_match(size):
+    """sample_environment and sample_environment_padded on [..., 3]
+    directions (the pad ring, the window's clip at both edges, the blend
+    order) against tpt.env's at rtol 1e-6, and equal to the port's planar
+    sampler on the same directions."""
+    f, d = faces(size, seed=size), np.moveaxis(directions(seed=size), 0, -1)
+    want = np.asarray(jenv.sample_environment(jnp.asarray(f), jnp.asarray(d)))
+    got = tenv.sample_environment(torch.from_numpy(f), torch.from_numpy(d))
+    assert got.shape == d.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    padded = tenv.pad_faces_for_sampling(torch.from_numpy(f), seamless=True)
+    want_padded = np.asarray(jenv.sample_environment_padded(
+        jenv.pad_faces_for_sampling(jnp.asarray(f), seamless=True), jnp.asarray(d)))
+    np.testing.assert_allclose(tenv.sample_environment_padded(padded, torch.from_numpy(d)),
+                               want_padded, rtol=1e-6, atol=1e-7)
+    planar = tenv.sample_environment_planar(torch.from_numpy(f),
+                                            torch.from_numpy(np.moveaxis(d, -1, 0)))
+    np.testing.assert_array_equal(np.moveaxis(planar.numpy(), 0, -1), got.numpy())

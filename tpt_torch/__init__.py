@@ -7,10 +7,13 @@ the render path runs through a hand-written CUDA trace kernel
 (``tpt_torch/csrc/trace.cu``) and the differentiable path (``trace_diff``,
 ``diff``, ``optim``, ``inverse_demo``) adds a hand-written backward kernel
 (``tpt_torch/csrc/trace_grad.cu``); on the CPU the same functions run their
-plain PyTorch versions.
+plain PyTorch versions.  ``tpt_torch.parallel`` shards the renderer, the
+progressive block and the train step over ranks of ``torch.distributed``;
+``tpt_torch.interactive`` is the viewer, ``tpt_torch.native_bridge`` the
+C++ host helpers (std140 pack, PCG chain, PNG writer).
 """
 
-from .config import (AtmosphereConfig, CameraConfig, RenderConfig,
+from .config import (AtmosphereConfig, CameraConfig, DistConfig, RenderConfig,
                      MAX_SPHERES, MAX_CUBOIDS)
 from .materials import Material
 from .scene import Scene, SceneBuilder, demo_scene, cornell_scene
@@ -21,7 +24,7 @@ from .optim import (clipped_adam, default_schedule, make_inverse_step, make_rend
                     load_optim_checkpoint, save_optim_checkpoint)
 
 __all__ = [
-    "AtmosphereConfig", "CameraConfig", "RenderConfig",
+    "AtmosphereConfig", "CameraConfig", "DistConfig", "RenderConfig",
     "MAX_SPHERES", "MAX_CUBOIDS", "Material", "Scene", "SceneBuilder",
     "demo_scene", "cornell_scene", "AccumulatorState", "init_accumulator",
     "accumulate", "reset", "trace_diff", "DiffInputs", "render_diff",

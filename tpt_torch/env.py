@@ -59,6 +59,12 @@ def cubemap_face_uv_planar(dx, dy, dz):
     return face.to(torch.int32), s, t
 
 
+def cubemap_face_uv(direction):
+    """GL cubemap face selection on [..., 3]-packed directions."""
+    d = torch.as_tensor(direction, dtype=torch.float32)
+    return cubemap_face_uv_planar(d[..., 0], d[..., 1], d[..., 2])
+
+
 def _pad_seamless(faces):
     """Pad ring filled with the ADJACENT face's edge texels: each face's
     (s, t) grid is extended one texel beyond [0, 1], turned into a direction
@@ -117,6 +123,23 @@ def _lerp2(t00, t01, t10, t11, fx, fy):
     top = t00 * (1 - fx) + t01 * fx
     bot = t10 * (1 - fx) + t11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def sample_environment_padded(padded, direction):
+    """Bilinear cubemap lookup from :func:`pad_faces_for_sampling` output
+    f32[6, S+2, S+2, 3].  ``direction``: [..., 3].  Returns [..., 3]."""
+    padded = torch.as_tensor(padded, dtype=torch.float32)
+    d = torch.as_tensor(direction, dtype=torch.float32)
+    face, fx, fy, x0, y0 = _bilinear_taps(padded.shape[1] - 2, torch.movedim(d, -1, 0))
+    f, x0, y0 = face.long(), x0.long(), y0.long()
+    taps = [padded[f, y0 + dy, x0 + dx] for dy in (0, 1) for dx in (0, 1)]
+    return _lerp2(*taps, fx[..., None], fy[..., None])
+
+
+def sample_environment(faces, direction):
+    """Bilinear cubemap lookup.  ``faces``: f32[6, S, S, 3] (row = t,
+    col = s); ``direction``: [..., 3].  Returns [..., 3]."""
+    return sample_environment_padded(pad_faces_for_sampling(faces), direction)
 
 
 def sample_environment_planar(faces, direction3, seamless: bool = False):
@@ -265,10 +288,10 @@ def load_cubemap_files(paths, srgb: bool = True) -> torch.Tensor:
 
 
 def bundled_skybox() -> torch.Tensor:
-    """The repository's 6-PNG sRGB skybox (tpt/assets/EnvironmentMap/, read
-    as files), or :func:`default_skybox` where the files are missing."""
-    d = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "tpt", "assets", "EnvironmentMap")
+    """The 6-PNG sRGB skybox (tpt_torch/assets/EnvironmentMap/, the JAX
+    package's asset files copied, read as files), or
+    :func:`default_skybox` where the files are missing."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "EnvironmentMap")
     paths = [os.path.join(d, f"{n}.png")
              for n in ("posx", "negx", "posy", "negy", "posz", "negz")]
     if all(os.path.exists(p) for p in paths):

@@ -20,6 +20,13 @@ import torch
 from .config import MAX_SPHERES, MAX_CUBOIDS, HOST_EPSILON
 from .materials import Material, MATERIAL_WIDTH
 
+# The reference's std140 UBO layout (src/GameObjects/Sphere.cs:20-31,
+# src/GameObjects/Cuboid.cs:21-35): a sphere slot is vec4 pos+radius and a
+# 4-vec4 material, a cuboid slot padded min, padded max and the material.
+SPHERE_STRIDE_FLOATS = 20   # 80 bytes
+CUBOID_STRIDE_FLOATS = 24   # 96 bytes
+STD140_TOTAL_FLOATS = MAX_SPHERES * SPHERE_STRIDE_FLOATS + MAX_CUBOIDS * CUBOID_STRIDE_FLOATS
+
 _TENSOR_FIELDS = ("sphere_pos_radius", "sphere_material", "cuboid_min",
                   "cuboid_max", "cuboid_material")
 FIELDS = _TENSOR_FIELDS + ("num_spheres", "num_cuboids")
@@ -140,6 +147,35 @@ class SceneBuilder:
                                  len(cuboids)), device)
 
 
+def pack_std140(scene: Scene) -> np.ndarray:
+    """Serialize to the reference's flat UBO layout: f32[6656] == 26624 bytes,
+    the bytes of tpt.scene.pack_std140.
+
+    Sphere slot i at float offset 20*i: [pos.xyz, radius, material(16)].
+    Cuboid slot j at 256*20 + 24*j: [min.xyz, pad, max.xyz, pad, material(16)].
+    """
+    buf = np.zeros(STD140_TOTAL_FLOATS, np.float32)
+    spheres = buf[:MAX_SPHERES * SPHERE_STRIDE_FLOATS].reshape(MAX_SPHERES, SPHERE_STRIDE_FLOATS)
+    spheres[:, :4] = scene.sphere_pos_radius.detach().cpu().numpy()
+    spheres[:, 4:] = scene.sphere_material.detach().cpu().numpy()
+    cuboids = buf[MAX_SPHERES * SPHERE_STRIDE_FLOATS:].reshape(MAX_CUBOIDS, CUBOID_STRIDE_FLOATS)
+    cuboids[:, 0:3] = scene.cuboid_min.detach().cpu().numpy()
+    cuboids[:, 4:7] = scene.cuboid_max.detach().cpu().numpy()
+    cuboids[:, 8:] = scene.cuboid_material.detach().cpu().numpy()
+    return buf
+
+
+def unpack_std140(buf: np.ndarray, num_spheres: int, num_cuboids: int, device="cpu") -> Scene:
+    """Inverse of :func:`pack_std140`, the scene's tensors on ``device``."""
+    buf = np.asarray(buf, np.float32).reshape(-1)
+    if buf.size != STD140_TOTAL_FLOATS:
+        raise ValueError(f"expected {STD140_TOTAL_FLOATS} floats, got {buf.size}")
+    spheres = buf[:MAX_SPHERES * SPHERE_STRIDE_FLOATS].reshape(MAX_SPHERES, SPHERE_STRIDE_FLOATS)
+    cuboids = buf[MAX_SPHERES * SPHERE_STRIDE_FLOATS:].reshape(MAX_CUBOIDS, CUBOID_STRIDE_FLOATS)
+    return Scene.from_numpy((spheres[:, :4], spheres[:, 4:], cuboids[:, 0:3], cuboids[:, 4:7],
+                             cuboids[:, 8:], num_spheres, num_cuboids), device)
+
+
 def update_sphere(scene: Scene, index, position=None, radius=None,
                   material: Material | None = None) -> Scene:
     """Single-object update returning a new Scene (the UBO SubData analogue,
@@ -176,6 +212,24 @@ def update_cuboid(scene: Scene, index, position=None, dimensions=None,
         cmat[index] = torch.from_numpy(material.to_array())
     return dataclasses.replace(scene, cuboid_min=cmin, cuboid_max=cmax,
                                cuboid_material=cmat)
+
+
+def randomize_materials(builder: SceneBuilder, max_num: int, kind=SphereObject, rng=None) -> int:
+    """Assign random materials to the first ``max_num`` objects of ``kind``
+    (the GUI's random-materials button, src/MainWindow.cs:324-336 /
+    src/Render/Gui.cs:69-73); the same generator state assigns the same
+    materials as tpt.scene.randomize_materials.  Returns the count changed;
+    call ``builder.build()`` to refresh the device scene."""
+    from .materials import random_material
+    rng = rng if rng is not None else np.random.default_rng()
+    changed = 0
+    for obj in builder.objects:
+        if changed >= max_num:
+            break
+        if isinstance(obj, kind):
+            obj.material = random_material(rng)
+            changed += 1
+    return changed
 
 
 def demo_scene() -> SceneBuilder:
