@@ -1,20 +1,25 @@
 """Smoke run of the PyTorch port (tpt_torch) on one CUDA card.
 
-Builds the CUDA kernels from tpt_torch/csrc (one nvcc per source, in
-parallel), holds each against its plain PyTorch version on the card, and
-drives the port's two paths through their entry points:
+Builds the CUDA kernels from tpt_torch/csrc (one nvcc per library, all in
+parallel: the dynamic set, and trace.cu and trace_grad.cu for the demo
+scene's counts, rolled and unrolled, BUILDS), holds each against its plain
+PyTorch version on the card, and drives the port's two paths through their
+entry points:
 
   * the render path: the progressive render of the demo scene at
     1920x1080, ray depth 13, 1 spp, thin-lens depth of field, the 256^2
     atmosphere, in 30-frame blocks, through ``tpt_torch.cli render``: one
-    launch of the forward kernel a block, in its environment mode (held bit
-    for bit to its plain version at 256^2 and at the 1080p block, beside the
-    slot mode's check), the block's peak allocation below the miss slots'
-    size, and the per-frame and block lane efficiencies; then the same
+    launch of the forward kernel a block, in its environment mode and
+    through the rolled build for the demo scene's counts (48, 7) (the
+    dynamic build held bit for bit to its plain version at 256^2 and at the
+    1080p block, beside the slot mode's check), the block's time through
+    both builds in turns, its peak allocation below the miss slots' size,
+    and the per-frame and block lane efficiencies; then the same
     mode with the opt-in bf16 table (``--env-bf16``), bit for bit against
     its plain version at 256^2 and at the 1080p block, its time beside the
-    f32 table's in turns, the two images' mean relative difference and its
-    ptxas report, and ``cli render --env-bf16``;
+    f32 table's in turns through the build its path takes, the two images'
+    mean relative difference and its ptxas report, and
+    ``cli render --env-bf16``;
   * the oracle renderer: ``cli render --backend oracle`` at 1920x1080,
     depth 13, 2 frames, no kernel launch, each frame held to the kernel's
     per-frame launch; ``cli sky`` and ``cli pick``;
@@ -32,6 +37,13 @@ drives the port's two paths through their entry points:
   * the one-hot gather: ``trace(..., gather="onehot")`` at the four
     one-frame shapes, bit for bit against the select kernel and against
     its plain version;
+  * the static counts: the (48, 7) builds, unrolled and rolled, bit for bit
+    against the dynamic build in every forward mode at the 1080p block and
+    frame and in the train_bench step's tape, then the block (both tables),
+    the select frame, the tape kernel and the environment mode at 1-16
+    frames a launch timed in turns, with each build's ptxas report, blocks per SM,
+    SASS size and nvcc seconds; the paths other than the render, bf16 and
+    viewer paths take the dynamic build, and the script checks that;
   * the sharded paths of ``tpt_torch.parallel`` in one gloo world of 4
     ranks on the card (1920x1080, depth 13, the 256^2 atmosphere): the
     frame renderer at (dp=4, sp=1) and (dp=2, sp=2) bit for bit against
@@ -84,6 +96,18 @@ import numpy as np
 import torch
 
 WIDTH, HEIGHT, DEPTH, BLOCK = 1920, 1080, 13, 30
+DEMO = (48, 7)   # the demo scene's counts
+# the library sets the phases use (tpt_torch.kernels._build keys): the
+# dynamic one, which every launch without counts and every one-frame and
+# backward launch takes; the demo scene's rolled build (_build.UNROLL),
+# which the environment-mode launches of the render, bf16 and viewer paths
+# take (kernels.trace.forward_library); its fully unrolled form, only
+# compared and timed
+PATH_BUILD, UNROLLED = DEMO + (0,), DEMO + (1,)
+BUILDS = (None, PATH_BUILD, UNROLLED)
+# the pixel that carries the 1080p step's loss without Russian roulette
+# (tests/test_torch_integrator.py LOSS_PIXEL holds its path to tpt's)
+LOSS_PIXEL = (1524, 264)
 REPO = os.path.dirname(os.path.abspath(__file__))
 TRAIN_STEPS, TRAIN_VIEWS = 200, 2
 PROBE_GRIDS = (100, 1013)   # the harness's, and 1013 x 16 x 128 = 2,074,624 (~1080p)
@@ -130,6 +154,15 @@ def frame_cases():
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def build_args(key):
+    """(counts, unroll) of a build key, as load_library takes them."""
+    return (None, 1) if key is None else (key[:2], key[2])
+
+
+def build_name(key) -> str:
+    return "dynamic" if key is None else f"counts {key[:2]} unroll {key[2]}"
 
 
 def bound(ops: float, nbytes: float):
@@ -229,6 +262,28 @@ def ptxas_report(log: str) -> dict:
     return {k: (f"{v.get('registers', '?')} registers, {v.get('stores', '?')}/"
                 f"{v.get('loads', '?')} bytes spill stores/loads, {v.get('stack', '?')} bytes "
                 f"stack") for k, v in out.items()}
+
+
+def sass_sizes(library) -> dict:
+    """{kernel: SASS instructions} of each entry function in a built
+    library (cuobjdump -sass; names as ptxas_report gives them), empty when
+    the toolkit has no cuobjdump."""
+    import re
+    from tpt_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return {}
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    sizes, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next(iter(ptxas_report(f"Compiling entry function '{m.group(1)}'")))
+            sizes[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            sizes[name] += 1
+    return sizes
 
 
 def assert_bits_equal(got, want, what,
@@ -517,20 +572,29 @@ def grad_phases(dev, card, K, G):
     return max_err, times
 
 
-def trace_blocks_per_sm():
+def trace_blocks_per_sm(lib=None):
     """Blocks per SM of the forward kernel's select, table, environment and
     bf16-environment instantiations, by the occupancy API (the layout
-    entry)."""
+    entry), in ``lib`` (a loaded library set; the dynamic one by default)."""
     from tpt_torch.kernels import _build
     blocks = (ctypes.c_int * 4)()
-    if _build.load_library().tpt_trace_layout(blocks) != 0:
+    if (lib or _build.load_library()).tpt_trace_layout(blocks) != 0:
         raise AssertionError("the trace kernel's layout entry failed")
     return list(blocks)
 
 
+def tape_blocks_per_sm(lib) -> int:
+    """The tape kernel's blocks per SM in ``lib`` (its layout entry)."""
+    n = ctypes.c_int()
+    if lib.tpt_trace_grad_tape_layout(ctypes.byref(n)) != 0:
+        raise AssertionError("the tape kernel's layout entry failed")
+    return n.value
+
+
 def grad_blocks_per_sm():
     """{"tape", "adjoint": blocks per SM by the occupancy API, "grid": the
-    adjoint kernel's persistent grid} from the layout entries."""
+    adjoint kernel's persistent grid} from the layout entries of the
+    dynamic build."""
     from tpt_torch.kernels import _build
     lib = _build.load_library()
     tape, adj, grid, words = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
@@ -585,6 +649,7 @@ def train_phases(dev, card, K, G):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "inverse_demo.json")
         K.LAUNCHES, G.GRAD_LAUNCHES, G.TAPE_LAUNCHES, G.ADJOINT_LAUNCHES = 0, 0, 0, 0
+        K.BUILD_LAUNCHES.clear()
         t0 = time.perf_counter()
         rc = inverse_demo.main(["--steps", str(TRAIN_STEPS), "--size", "512x512",
                                 "--device", "cuda", "--out", out])
@@ -592,6 +657,7 @@ def train_phases(dev, card, K, G):
         wall = time.perf_counter() - t0
         launches, grad_launches = K.LAUNCHES, G.GRAD_LAUNCHES
         pair = {"tape": G.TAPE_LAUNCHES, "adjoint": G.ADJOINT_LAUNCHES}
+        builds = dict(K.BUILD_LAUNCHES)
         with open(out) as f:
             res = json.load(f)
         pngs = sorted(n for n in os.listdir(tmp) if n.endswith(".png"))
@@ -600,13 +666,17 @@ def train_phases(dev, card, K, G):
         raise AssertionError(f"inverse_demo: rc {rc}, {grad_launches} backward calls "
                              f"(want {want}), {pair} backward kernel launches, {launches} trace "
                              f"launches")
+    if builds != {None: launches}:
+        raise AssertionError(f"inverse_demo: trace kernel launches by build {builds} (want "
+                             f"all through the dynamic build)")
     if not (np.isfinite(res["loss_last"]) and np.isfinite(res["loss_final_median"])
             and res["sphere_param_mae_after"] < 0.5 * res["sphere_param_mae_before"]
             and len(pngs) == 3):
         raise AssertionError(f"inverse_demo did not converge: {res}, {pngs}")
     phase("train", f"inverse_demo 512x512 depth 8, 2 views, {TRAIN_STEPS} steps: "
           f"{launches} trace kernel launches, {grad_launches} backward calls ({pair['tape']} "
-          f"tape / {pair['adjoint']} adjoint kernel launches), {wall:.1f} s wall, "
+          f"tape / {pair['adjoint']} adjoint kernel launches, all through the dynamic "
+          f"build), {wall:.1f} s wall, "
           f"loss {res['loss_first']:.5f} -> median {res['loss_final_median']:.5f}, sphere "
           f"MAE {res['sphere_param_mae_before']} -> {res['sphere_param_mae_after']}, "
           f"emissive MAE {res['cuboid_param_mae_before']} -> {res['cuboid_param_mae_after']}")
@@ -625,6 +695,42 @@ def train_phases(dev, card, K, G):
           f"{ms:.2f} ms per step over 20 steps (host clock, synchronised), loss "
           f"{float(loss):.5f} ({card})")
     return launches, pair
+
+
+def loss_pixel_phase(dev, card, K, faces):
+    """Which pixel carries the 1080p training step's loss with Russian
+    roulette off: the frame of the dist-train step (the demo scene, the
+    default camera, depth 13, 1 spp, frame 0, the 256^2 atmosphere, loss
+    mean((img - 0.25)^2)) through the forward kernel, each pixel's squared
+    error, the largest one's share of the loss, beside the loss with
+    roulette on.  The pixel must be LOSS_PIXEL, whose path
+    tests/test_torch_integrator.py holds to tpt's transport on the CPU."""
+    from tpt_torch import CameraConfig, demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.env import pack_block_table
+    from tpt_torch.integrator import apply_environment_blocked
+
+    scene, cam = demo_scene().build(dev), CameraConfig()
+    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    table = pack_block_table(faces)
+    losses = {}
+    for rr in (True, False):
+        res = K.trace(scene, ip, iv, 0, cam.focal_length, cam.aperture_diameter, width=WIDTH,
+                      height=HEIGHT, ray_depth=DEPTH, spp=1, counts=DEMO, rr=rr)
+        img = torch.movedim(apply_environment_blocked(res, table, 1), 0, -1)
+        se = ((img - 0.25) ** 2).sum(-1)
+        losses[rr] = float(se.sum()) / (WIDTH * HEIGHT * 3)
+    top = int(torch.argmax(se))
+    y, x = divmod(top, WIDTH)
+    share = float(se.view(-1)[top].double() / se.double().sum())
+    thr = float(res.miss_thr[0, :, y, x].max())
+    if (x, y) != LOSS_PIXEL or not np.isfinite(losses[False]):
+        raise AssertionError(f"roulette-off loss {losses[False]}: its largest pixel is "
+                             f"{(x, y)}, not {LOSS_PIXEL}")
+    phase("loss-pixel", f"{WIDTH}x{HEIGHT} depth {DEPTH} frame 0, loss mean((img - 0.25)^2): "
+          f"roulette off {losses[False]:.7g}, on {losses[True]:.7g}; pixel {(x, y)} carries "
+          f"{share:.4f} of the roulette-off loss, {int(res.ray_count[y, x])} bounces, miss "
+          f"throughput {thr:.7g} ({card})")
 
 
 def onehot_phases(dev, card, K):
@@ -678,10 +784,146 @@ def onehot_phases(dev, card, K):
     return launches, times
 
 
+def written_tape(tape):
+    """The words of a 1-sample tape (carries, codes, counts) that the tape
+    kernel wrote, each (pixel) item's first counts bounces, as int32."""
+    carries, codes, counts = tape
+    live = (torch.arange(DEPTH, device=counts.device).view(DEPTH, 1)
+            < counts.view(1, -1))   # [bounce, pixel]
+    return (carries.view(torch.int32).view(DEPTH, 10, -1).masked_select(live.unsqueeze(1)),
+            codes.view(DEPTH, -1).masked_select(live), counts)
+
+
+def static_counts_phase(dev, card, K, G, faces):
+    """The builds for the demo scene's counts against the dynamic build on
+    the card, each library handed to the private launchers: each of the
+    1080p 30-frame block's modes (environment with the f32 and with the
+    bf16 table, slots), the 1080p frame's select and table gathers and the
+    train_bench step's tape (its written words and counts), bit for bit, at
+    unroll 1 and 0; then the block (both tables), the select frame and
+    the tape kernel timed in turns with CUDA events (dynamic, unroll 1,
+    unroll 0, unroll 0, unroll 1, dynamic), and the environment mode at 1
+    to 16 frames a launch (dynamic, unroll 0, unroll 0, dynamic); each build's ptxas report,
+    blocks per SM, SASS size and build seconds.  Returns {"ms": {item:
+    {build: [turns]}}, "reports": {build: report}}."""
+    from tpt_torch import CameraConfig, demo_scene
+    from tpt_torch.camera import camera_matrices
+    from tpt_torch.env import pack_block_table
+    from tpt_torch.integrator import build_attr_table
+    from tpt_torch.kernels import _build
+
+    scene, cam = demo_scene().build(dev), CameraConfig()
+    if scene.counts != DEMO:
+        raise AssertionError(f"the demo scene's counts are {scene.counts}, not {DEMO}")
+    focal, ap = cam.focal_length, cam.aperture_diameter
+    ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    tables = {"f32": pack_block_table(faces),
+              "bf16": pack_block_table(faces, dtype=torch.bfloat16)}
+    attr = build_attr_table(scene, DEMO)
+    cam20 = G.camera_vector(ip, iv, focal, ap, device=dev)
+    frame_kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, counts=DEMO)
+    band = dict(n_rows=HEIGHT, row0=0, jitter="corner", rr=True)
+    keys = {"dynamic": None, "unroll 1": UNROLLED, "unroll 0": PATH_BUILD}
+    libs = {b: _build.load_library(*build_args(k)) for b, k in keys.items()}
+
+    def block(table, n_frames=BLOCK):
+        return lambda lib: K._launch(scene, ip, iv, 0, focal, ap, n_frames=n_frames,
+                                     n_valid=n_frames, env_table=table, lib=lib, **band,
+                                     **frame_kw)
+
+    def frame(gather):
+        return lambda lib: K._launch(scene, ip, iv, 5, focal, ap, n_frames=1, n_valid=1,
+                                     gather=gather, lib=lib, **band, **frame_kw)
+
+    def tape(lib):
+        return written_tape(G._tape_counts(scene, attr, cam20, 0, tape=True, lib=lib,
+                                           **frame_kw))
+
+    checks = {"block, environment mode, f32 table": block(tables["f32"]),
+              "block, environment mode, bf16 table": block(tables["bf16"]),
+              "block, slot mode": block(None),
+              "frame, select gather": frame("select"),
+              "frame, table gather": frame("onehot")}
+    for what, fn in checks.items():
+        want = fn(libs["dynamic"])
+        for build in ("unroll 1", "unroll 0"):
+            assert_bits_equal(fn(libs[build]), want, f"static counts, {what}, {build}",
+                              [n for n, v in want._asdict().items() if v is not None])
+        del want
+    want = tape(libs["dynamic"])
+    for build in ("unroll 1", "unroll 0"):
+        got = tape(libs[build])
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"static counts, train_bench tape, {build}: the tape differs "
+                                 f"from the dynamic build's")
+        del got
+    words = sum(t.numel() for t in want[:2])
+    del want
+    torch.cuda.synchronize()
+    phase("static-counts", f"builds for {DEMO} (unroll 1 and 0) bit-equal to the dynamic "
+          f"build at {WIDTH}x{HEIGHT} depth {DEPTH}: " + ", ".join(checks) + f"; the "
+          f"train_bench step's tape ({words} written carry and code words, the counts) "
+          f"word for word ({card})")
+
+    order = ("dynamic", "unroll 1", "unroll 0", "unroll 0", "unroll 1", "dynamic")
+    timed = {"block": (block(tables["f32"]), 3), "block, bf16 table": (block(tables["bf16"]), 3),
+             "select frame": (frame("select"), 20),
+             "tape": (lambda lib: G._tape_counts(scene, attr, cam20, 0, lib=lib, **frame_kw), 5)}
+    ms = {}
+    for item, (fn, reps) in timed.items():
+        turns = [cuda_ms(lambda: fn(libs[build]), reps) for build in order]
+        ms[item] = {b: [t for o, t in zip(order, turns) if o == b] for b in keys}
+        phase("static-counts", f"{item} ms in turns ({', '.join(order)}): "
+              + ", ".join(f"{t:.3f}" for t in turns) + f" ({card})")
+    # the environment mode by frames a launch, where the rule of
+    # kernels.trace.forward_library (BLOCK_FRAMES) draws its line
+    sweep, pair = {}, ("dynamic", "unroll 0", "unroll 0", "dynamic")
+    for n in (1, 2, 4, 8, 16):
+        fn = block(tables["f32"], n)
+        sweep[n] = [cuda_ms(lambda: fn(libs[build]), max(3, 60 // n)) for build in pair]
+    ms["environment mode by frames"] = sweep
+    phase("static-counts", f"environment mode by frames a launch, ms in turns "
+          f"({', '.join(pair)}): " + "; ".join(f"{n} frames " + ", ".join(
+              f"{t:.3f}" for t in v) for n, v in sweep.items()) + f" ({card})")
+
+    reports = {}
+    for build, key in keys.items():
+        paths, _ = _build.ensure_built(*build_args(key))
+        ptxas = {**ptxas_report(paths["trace.cu"].with_suffix(".log").read_text()),
+                 **ptxas_report(paths["trace_grad.cu"].with_suffix(".log").read_text())}
+        sass = {k: v for src in _build.SPECIALISED_SOURCES
+                for k, v in sass_sizes(paths[src]).items()}
+        reports[build] = {"ptxas": ptxas, "blocks_per_sm": trace_blocks_per_sm(libs[build])
+                          + [tape_blocks_per_sm(libs[build])], "sass": sass,
+                          "build_s": {src: _build.build_seconds(paths[src])
+                                      for src in _build.SPECIALISED_SOURCES}}
+        phase("static-counts", f"{build_name(key)}: " + "; ".join(
+            f"{k} {v}" for k, v in ptxas.items()) + "; blocks per SM (select, table, "
+            "environment, bf16 environment, tape): "
+            + ", ".join(map(str, reports[build]["blocks_per_sm"])) + "; SASS instructions "
+            + (", ".join(f"{k} {v}" for k, v in sass.items()) or "not measured") + "; nvcc "
+            + ", ".join(f"{src} {t:.2f} s" for src, t in reports[build]["build_s"].items()))
+    return {"ms": ms, "reports": reports}
+
+
+def static_entries(static, kernel: str, item: str, slot: int) -> dict:
+    """The kernels-line keys of one kernel's builds for the demo scene's
+    counts: each build's mean time of ``item``, ptxas report, blocks per SM
+    (``slot`` of the layout list), SASS size and nvcc seconds."""
+    mean = lambda v: sum(v) / len(v)
+    src = "trace_grad.cu" if kernel.startswith("trace_grad") else "trace.cu"
+    return {"builds": {b: {"ms": mean(static["ms"][item][b]), "ptxas": r["ptxas"].get(kernel),
+                           "blocks_per_sm": r["blocks_per_sm"][slot],
+                           "sass_instructions": r["sass"].get(kernel),
+                           "build_s": r["build_s"][src]}
+                       for b, r in static["reports"].items()}}
+
+
 def env_bf16_phases(dev, card, K, scene, faces, escapes):
     """The environment mode with the bf16 table (``--env-bf16``): bit for
     bit against its plain version at the 256^2 tail and at the 30-frame
-    1080p block, the block's time beside the f32 table's in turns, the mean
+    1080p block, the block's time beside the f32 table's in turns through
+    the build its path takes (the demo scene's counts, PATH_BUILD), the mean
     relative difference of the two blocks' images (tpt's measure,
     benchmarks/exp_env_bf16.py), the instantiation's ptxas report and blocks
     per SM; then its path, ``cli render --env-bf16``, with the counts set to
@@ -703,7 +945,8 @@ def env_bf16_phases(dev, card, K, scene, faces, escapes):
                       "bf16 environment mode at 256^2", env_out)
 
     ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
-    kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=BLOCK)
+    kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=BLOCK,
+              counts=scene.counts)
 
     def run(t):
         return K.trace_progressive(scene, ip, iv, 0, focal, ap, env_table=t, **kw)
@@ -733,13 +976,14 @@ def env_bf16_phases(dev, card, K, scene, faces, escapes):
     bound_ms, bound_by = trace_bound(segments, pixels * BLOCK, pixels, 0, scene.counts,
                                      env_bytes=table_bytes, escapes=escapes)
     name = "trace_progressive_kernel<false,true,true>"
-    paths, _ = _build.ensure_built()
+    paths, _ = _build.ensure_built(*build_args(PATH_BUILD))
     ptxas = ptxas_report(paths["trace.cu"].with_suffix(".log").read_text()).get(name)
-    per_sm = trace_blocks_per_sm()[3]
+    per_sm = trace_blocks_per_sm(_build.load_library(*build_args(PATH_BUILD)))[3]
     phase("env-bf16", f"the bf16 table ({table_bytes} bytes, the f32 table's "
           f"{f32_table.numel() * 4}): 256x256 4 frames (n_valid 3) and the {WIDTH}x{HEIGHT} "
           f"{BLOCK}-frame block bit-equal to the plain version, ray counts equal to the f32 "
-          f"table's; block f32 {turns[0]:.3f} / bf16 {turns[1]:.3f} / bf16 {turns[2]:.3f} / f32 "
+          f"table's; through the {build_name(PATH_BUILD)} build: block f32 {turns[0]:.3f} / "
+          f"bf16 {turns[1]:.3f} / bf16 {turns[2]:.3f} / f32 "
           f"{turns[3]:.3f} ms in turns, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}); mean relative image difference to the f32 table's {rel:.3g}; "
           f"{name}: {ptxas}, {per_sm} blocks/SM ({card})")
@@ -747,22 +991,27 @@ def env_bf16_phases(dev, card, K, scene, faces, escapes):
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "bf16.png")
         K.LAUNCHES, K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES = 0, 0, 0
+        K.BUILD_LAUNCHES.clear()
         rc = cli.main(["render", "--device", "cuda", "--width", str(WIDTH), "--height",
                        str(HEIGHT), "--frames", str(2 * BLOCK), "--chunk", str(BLOCK),
                        "--env-bf16", "--out", png])
         torch.cuda.synchronize()
         launches = (K.LAUNCHES, K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES)
-        if rc != 0 or launches != (2, 2, 2) or os.path.getsize(png) == 0:
+        if rc != 0 or launches != (2, 2, 2) or os.path.getsize(png) == 0 \
+                or dict(K.BUILD_LAUNCHES) != {PATH_BUILD: 2}:
             raise AssertionError(f"cli render --env-bf16: rc {rc}, launches (all, environment, "
-                                 f"bf16) {launches} (want 2 each)")
+                                 f"bf16) {launches} (want 2 each), by build "
+                                 f"{dict(K.BUILD_LAUNCHES)}")
     phase("env-bf16", f"cli render --env-bf16 {WIDTH}x{HEIGHT} {2 * BLOCK} frames: {launches[2]} "
-          f"kernel launches, all in the bf16 environment mode")
+          f"kernel launches, all in the bf16 environment mode, through the "
+          f"{build_name(PATH_BUILD)} build")
     return {"name": f"{name} (--env-bf16)", "route": "cuda",
             "source": "tpt_torch/csrc/trace.cu", "replaces": "tpt/kernels/trace.py:519",
             "launches": launches[2], "max_abs_err": 0.0, "ms": (turns[1] + turns[2]) / 2,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "f32_table_ms": (turns[0] + turns[3]) / 2,
-            "mean_rel_image_diff": rel, "ptxas": ptxas, "blocks_per_sm": per_sm}
+            "mean_rel_image_diff": rel, "ptxas": ptxas, "blocks_per_sm": per_sm,
+            "build": build_name(PATH_BUILD)}
 
 
 def oracle_phase(dev, card, K):
@@ -1402,6 +1651,11 @@ def dist_phases(dev, card, faces):
         tapes = sum_launches(results, j, "TAPE_LAUNCHES")
         if tapes != job["dp"] * job["sp"] * job.get("psum_bands", 1):
             raise AssertionError(f"dist-train {job}: {tapes} tape kernel launches")
+        keys = {k for r in results if r[j] is not None
+                for k in r[j]["launches"]["BUILD_LAUNCHES"]}
+        if keys != {None}:
+            raise AssertionError(f"dist-train {job}: trace kernel builds {keys} (want the "
+                                 f"dynamic build alone)")
         what = "Adam" if adam else f"rr {'on' if rr else 'off'} bands {job['psum_bands']}"
         parts.append(f"dp={job['dp']} sp={job['sp']} {what}: loss {got['losses'][0]:.6f}, "
                      f"worst err/scale {worst:.2g}"
@@ -1420,7 +1674,8 @@ def dist_phases(dev, card, faces):
     phase("dist-train", f"make_train_step(backend='kernel') {WIDTH}x{HEIGHT} depth {DEPTH} spp "
           f"1 counts (48, 7), SGD lr 0.1, {DIST_RANKS} gloo ranks on cuda:0, each held to a "
           f"world of one with the same groups and row bands (loss rtol 1e-5, tables' "
-          f"gradients at rtol 1e-3, floor 1e-3): " + "; ".join(parts) + "; one process "
+          f"gradients at rtol 1e-3, floor 1e-3; every launch through the dynamic "
+          f"build): " + "; ".join(parts) + "; one process "
           + ", ".join(f"{ms:.2f} ms a step ({g} group{'s' if g > 1 else ''}, whole frame)"
                       for g, ms in single_ms.items())
           + f" (ranks sharing one card: contention, not scaling) ({card})")
@@ -1497,11 +1752,13 @@ def viewer_phase(dev, card, K):
         cam = ses.cam.to_config(ses.base_cam)
         ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
         want = init_accumulator(HEIGHT, WIDTH, dev)
-        launches = 0
+        launches, spec = 0, 0
         for b in range(2):
             K.ENV_LAUNCHES = 0
+            K.BUILD_LAUNCHES.clear()
             disp = ses.render_one(BLOCK)
             launches += K.ENV_LAUNCHES
+            spec += K.BUILD_LAUNCHES[PATH_BUILD]
             want, rays = progressive_frames(want, ses.scene, ses.env_table, ip, iv, b * BLOCK,
                                             cam.focal_length, cam.aperture_diameter,
                                             width=WIDTH, height=HEIGHT,
@@ -1509,9 +1766,11 @@ def viewer_phase(dev, card, K):
                                             n_frames=BLOCK)
             if not torch.equal(ses.acc.image.view(torch.int32), want.image.view(torch.int32)):
                 raise AssertionError(f"viewer: draw {b} differs from progressive_frames")
-        if launches != 2 or disp.shape != (HEIGHT, WIDTH, 3) or disp.dtype != np.uint8:
-            raise AssertionError(f"viewer: {launches} environment-mode launches in two draws "
-                                 f"(want 2), display {disp.shape} {disp.dtype}")
+        if launches != 2 or spec != 2 or disp.shape != (HEIGHT, WIDTH, 3) \
+                or disp.dtype != np.uint8:
+            raise AssertionError(f"viewer: {launches} environment-mode launches in two draws, "
+                                 f"{spec} through the {build_name(PATH_BUILD)} build (want 2, "
+                                 f"2), display {disp.shape} {disp.dtype}")
         shot = ses.screenshot()
         if not os.path.getsize(shot) > 0:
             raise AssertionError("viewer: empty screenshot")
@@ -1536,7 +1795,8 @@ def viewer_phase(dev, card, K):
                                     ray_depth=ses.cfg.ray_depth, spp=ses.cfg.spp)
         fs = frame_stats(lambda: ses.render_one(1), rays=int(one), pixels=WIDTH * HEIGHT)
     phase("viewer", f"ViewerSession(size=256, device='cuda') -> set_size({WIDTH}, {HEIGHT}); "
-          f"render_one({BLOCK}) twice bit-equal to progressive_frames ({launches} "
+          f"render_one({BLOCK}) twice through the {build_name(PATH_BUILD)} build, "
+          f"bit-equal to progressive_frames without counts, the dynamic build ({launches} "
           f"environment-mode launches); a held key resets; the centre "
           f"pick names {pick.split(' at ')[0].replace('picked: ', '')}, as cli pick; screenshot "
           f"{os.path.basename(shot)}; one-frame draws {1e3 / max(stats.fps, 1e-9):.2f} ms "
@@ -1589,13 +1849,22 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} sm_{''.join(map(str, torch.cuda.get_device_capability(0)))} "
           f"count {torch.cuda.device_count()}")
 
-    # ---- 2. build ----
+    # ---- 2. build: every library set a phase uses, all nvcc runs at once ----
+    if _build.build_key(DEMO) != PATH_BUILD:
+        raise AssertionError(f"the render paths take {_build.build_key(DEMO)}, not {PATH_BUILD}")
     t0 = time.perf_counter()
-    paths, log = _build.ensure_built()
-    _build.load_library()
-    phase("build", f"{time.perf_counter() - t0:.2f} s -> "
+    built = _build.build_all(BUILDS)
+    for key in BUILDS:
+        _build.load_library(*build_args(key))
+    wall = time.perf_counter() - t0
+    paths, log = built[None]
+    phase("build", f"{wall:.2f} s for {sum(len(p) for p, _ in built.values())} libraries in "
+          f"{len(BUILDS)} sets -> "
           f"{', '.join(os.path.relpath(p, REPO) for p in paths.values())}; ptxas: "
           + "; ".join(f"{k} {v}" for k, v in ptxas_report(log).items()))
+    for key in BUILDS:
+        phase("build", f"{build_name(key)}: " + "; ".join(
+            f"{src} {_build.build_seconds(path):.2f} s" for src, path in built[key][0].items()))
     per_sm = trace_blocks_per_sm()
     phase("trace-build", "csrc/trace.cu ptxas: " + "; ".join(
         f"{k} {v}" for k, v in ptxas_report(
@@ -1699,7 +1968,7 @@ def main() -> int:
     bf16_entry = env_bf16_phases(dev, card, K, scene, faces, escapes)
 
     # ---- 5. golden image through the kernel ----
-    from tpt_torch.kernels.render import progressive_frames, render_fields
+    from tpt_torch.kernels.render import kernel_counts, progressive_frames, render_fields
     gip, giv, gpos = camera_matrices(cam, 512, 512)
     img, _ = render_fields(scene, compute_atmosphere(AtmosphereConfig(size=32), dev),
                            gip, giv, gpos, 0, focal, ap, width=512, height=512,
@@ -1719,6 +1988,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         png, ckpt = os.path.join(tmp, "smoke.png"), os.path.join(tmp, "smoke.npz")
         K.LAUNCHES, K.ENV_LAUNCHES = 0, 0
+        K.BUILD_LAUNCHES.clear()
         t0 = time.perf_counter()
         rc = cli.main(["render", "--device", "cuda", "--width", str(WIDTH),
                        "--height", str(HEIGHT), "--frames", str(3 * BLOCK),
@@ -1726,50 +1996,68 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, env_launches = K.LAUNCHES, K.ENV_LAUNCHES
+        main_builds = dict(K.BUILD_LAUNCHES)
         if rc != 0 or launches != 3 or env_launches != 3:
             raise AssertionError(f"cli render: rc {rc}, {launches} kernel launches, "
                                  f"{env_launches} in the environment mode (want 3, 3)")
+        if main_builds != {PATH_BUILD: 3}:
+            raise AssertionError(f"cli render: launches by build {main_builds} (want all 3 "
+                                 f"through the build for the scene's counts {DEMO})")
         state = load_checkpoint(ckpt, dev)
         if not (os.path.getsize(png) > 0 and state.frame == 3 * BLOCK
                 and tuple(state.image.shape) == (HEIGHT, WIDTH, 3)
                 and bool(torch.isfinite(state.image).all()) and float(state.image.mean()) > 0):
             raise AssertionError("cli render: bad accumulator or PNG")
     phase("main-path", f"cli render {WIDTH}x{HEIGHT} {3 * BLOCK} frames in {BLOCK}-frame "
-          f"blocks: {launches} kernel launches, all in the environment mode, {wall:.2f} s "
+          f"blocks: {launches} kernel launches, all in the environment mode and through the "
+          f"{build_name(PATH_BUILD)} build, {wall:.2f} s "
           f"wall incl. the atmosphere, accumulator finite, mean "
           f"{float(state.image.mean()):.4f}")
 
-    # steady state: 3 more blocks of progressive_frames after one warm-up block
+    # steady state: blocks of progressive_frames after a warm-up block, 3 at
+    # a time in turns through the build the main path launches (the scene's
+    # counts) and through the dynamic build (no counts)
     frame = state.frame
 
-    def block():
+    def block(counts):
         nonlocal frame
         _, rays = progressive_frames(state, scene, table, ip, iv, frame, focal, ap,
                                      width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1,
-                                     n_frames=BLOCK)
+                                     counts=counts, n_frames=BLOCK)
         frame += BLOCK
         return rays
 
-    block()
+    def three_blocks(counts):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rays = [block(counts) for _ in range(3)]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 3
+        return ms, int(sum(int(r) for r in rays)) / (3 * ms * 1e-3) / 1e6
+
+    path_counts = kernel_counts(scene, dev)
+    block(path_counts)
+    block(None)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    rays = [block() for _ in range(3)]
-    end.record()
-    torch.cuda.synchronize()
-    ms_block = start.elapsed_time(end) / 3
-    segments = int(sum(int(r) for r in rays))
-    mrays = segments / (3 * ms_block * 1e-3) / 1e6
+    through = {}
+    for counts in (path_counts, None, None, path_counts):
+        through.setdefault(counts, []).append(three_blocks(counts))
     block_bytes = torch.cuda.max_memory_allocated(dev) - resident
     slot_bytes = 2 * BLOCK * 3 * WIDTH * HEIGHT * 4
     if block_bytes >= slot_bytes:
         raise AssertionError(f"a block allocated {block_bytes} bytes: miss slots are "
                              f"{slot_bytes}")
-    phase("throughput", f"{ms_block:.2f} ms per {BLOCK}-frame block, {mrays:.1f} Mrays/s "
-          f"(traced segments / s) on {card}; a block's peak allocation {block_bytes} bytes "
-          f"above the {resident} resident (the miss slots would be {slot_bytes})")
+    for counts, key in ((path_counts, PATH_BUILD), (None, None)):
+        ms_block, mrays = (sum(v) / 2 for v in zip(*through[counts]))
+        phase("throughput", f"{build_name(key)} build: {ms_block:.2f} ms per {BLOCK}-frame "
+              f"block, {mrays:.1f} Mrays/s (traced segments / s; 3 blocks at a time in turns "
+              f"{build_name(PATH_BUILD)}, dynamic, dynamic, {build_name(PATH_BUILD)}) on "
+              f"{card}")
+    phase("throughput", f"a block's peak allocation {block_bytes} bytes above the {resident} "
+          f"resident (the miss slots would be {slot_bytes})")
 
     # the oracle renderer, the host tools and the silhouette demos through
     # their entry points
@@ -1781,9 +2069,11 @@ def main() -> int:
     # phase's per-kernel times), so its wall clock is taken as it was before
     # the grad phase used the profiler
     train_launches, grad_launches = train_phases(dev, card, K, G)
+    loss_pixel_phase(dev, card, K, faces)
     grad_err, grad_times = grad_phases(dev, card, K, G)
 
     onehot_launches, onehot_times = onehot_phases(dev, card, K)
+    static = static_counts_phase(dev, card, K, G, faces)
     probe_kernels = probe_phases(dev, card)
 
     # the sharded paths in worlds of ranks on this card, then the viewer and
@@ -1794,22 +2084,27 @@ def main() -> int:
     native_phase()
 
     # one kernel serves both forward TPU kernels (pallas_trace_progressive at
-    # :519 and pallas_trace at :298); its times are those of the render
-    # path's launch, a 30-frame 1080p block in the environment mode, its
-    # launches those of the render path, the training path, the
-    # silhouette demos, the sharded paths (every rank's) and the viewer's
-    # draws, its lane efficiency that of the block; the backward kernels'
-    # launches those of the training path and the sharded train step.  Its table
-    # mode (the one-hot gather) is timed per 1080p frame, its bf16
-    # environment mode per block, each with its own path's launches.  No one PyTorch call computes a trace or its
-    # backward: library_ms is null.
+    # :519 and pallas_trace at :298), in two builds.  The dynamic build's
+    # entry: its times those of a 30-frame 1080p block in the environment
+    # mode without counts, its launches those of the paths that take it (the
+    # training path, the silhouette demos, the sharded paths, every rank's),
+    # its lane efficiency that of the block.  The build for the demo scene's
+    # counts: the launches of the render path and the viewer's draws, its
+    # times the same block's in the static-counts turns, beside every
+    # build's.  The backward kernels' launches are those of the training
+    # path and the sharded train step, all through the dynamic build; the
+    # tape kernel's entry adds its builds for the counts, compared only.
+    # The table mode (the one-hot gather) is timed per 1080p frame, the
+    # bf16 environment mode per block through the build its path takes,
+    # each with its own path's launches.  No one PyTorch call computes a
+    # trace or its backward: library_ms is null.
+    env = "trace_progressive_kernel<false,true,false>"
     print(json.dumps({"kernels": [{
         "name": "trace_progressive_kernel",
         "route": "cuda",
         "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:519",
-        "launches": (launches + train_launches + silhouette_launches + dist_launches
-                     + viewer_launches),
+        "launches": train_launches + silhouette_launches + dist_launches,
         "max_abs_err": max_err,
         "ms": times["block_ms"],
         "plain_ms": times["block_plain_ms"],
@@ -1817,6 +2112,21 @@ def main() -> int:
         "bound_by": times["bound_by"],
         "library_ms": None,
         "lane_efficiency": times["lane_efficiency"],
+        "build": "dynamic",
+    }, {
+        "name": f"{env} ({build_name(PATH_BUILD)})",
+        "route": "cuda",
+        "source": "tpt_torch/csrc/trace.cu",
+        "replaces": "tpt/kernels/trace.py:519",
+        "launches": main_builds[PATH_BUILD] + viewer_launches,
+        "max_abs_err": max_err,
+        "ms": sum(static["ms"]["block"]["unroll 0"]) / 2,
+        "plain_ms": times["block_plain_ms"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,
+        "build": build_name(PATH_BUILD),
+        **static_entries(static, env, "block", 2),
     }, {
         "name": "trace_progressive_kernel<true,false,false> (gather=onehot)",
         "route": "cuda",
@@ -1830,6 +2140,7 @@ def main() -> int:
         "bound_by": onehot_times["bound_by"],
         "library_ms": None,
         "select_ms": onehot_times["select_ms"],
+        "build": "dynamic",
     }, bf16_entry] + [{
         "name": f"trace_grad_{kernel}_kernel",
         "route": "cuda",
@@ -1844,6 +2155,9 @@ def main() -> int:
         "library_ms": None,
         "blocks_per_sm": grad_times["kernels"][kernel]["blocks_per_sm"],
         "pair_ms": grad_times["ms"],
+        "build": "dynamic",
+        **(static_entries(static, "trace_grad_tape_kernel", "tape", 4)
+           if kernel == "tape" else {}),
     } for kernel, source in (("tape", "trace_grad.cu"), ("adjoint", "trace_grad_adjoint.cu"))]
         + probe_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

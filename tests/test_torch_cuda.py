@@ -163,6 +163,88 @@ def test_trace_layout_gives_blocks_per_sm(device):
     assert all(1 <= b <= 16 for b in blocks), list(blocks)
 
 
+def written_tape(tape, spp, depth, npix):
+    """The words of a tape (carries, codes, counts) that the tape kernel
+    wrote: each (pixel, sample) item's first counts bounces; the rest of
+    the buffers is never zeroed."""
+    carries, codes, counts = tape
+    counts = counts.view(spp, 1, npix)
+    live = torch.arange(depth, device=counts.device).view(1, depth, 1) < counts
+    return (carries.view(spp, depth, 10, npix).view(torch.int32)[live.unsqueeze(2).expand(
+                spp, depth, 10, npix)], codes.view(spp, depth, npix)[live], counts)
+
+
+@pytest.mark.parametrize("unroll", [1, 0])
+def test_specialised_build_equals_the_dynamic_build(device, unroll):
+    """The build for the demo scene's counts (48, 7), its scan unrolled or
+    rolled, against the dynamic build, each library handed to the private
+    launchers: every forward mode (select, table, slots, f32 and bf16
+    environment) bit for bit, and the tape kernel's written tape and counts
+    word for word.  Through the wrappers, only the environment mode's block
+    with counts takes the (rolled) build for them."""
+    from tpt_torch.integrator import build_attr_table
+    from tpt_torch.kernels import _build
+    from tpt_torch.kernels import trace_grad as G
+    scene, inv_p, inv_v, focal, ap = setup(device, 48)
+    counts = scene.counts
+    faces = constant_environment((0.7, 0.8, 1.0), device=device)
+    tables = (pack_block_table(faces), pack_block_table(faces, dtype=torch.bfloat16))
+    cam20 = G.camera_vector(inv_p, inv_v, focal, ap, device=device)
+    attr = build_attr_table(scene, counts)
+    kw = dict(width=48, height=48, ray_depth=13, spp=2, counts=counts)
+    band = dict(n_rows=48, row0=0, jitter="corner", rr=True)
+
+    def run(lib):
+        args = (scene, inv_p, inv_v, 5, focal, ap)
+        out = [K._launch(*args, n_frames=1, n_valid=1, lib=lib, **band, **kw),
+               K._launch(*args, n_frames=1, n_valid=1, gather="onehot", lib=lib, **band, **kw),
+               K._launch(*args, n_frames=3, n_valid=2, lib=lib, **band, **kw)]
+        out += [K._launch(*args, n_frames=3, n_valid=3, env_table=t, lib=lib, **band, **kw)
+                for t in tables]
+        tape = G._tape_counts(scene, attr, cam20, 5, tape=True, lib=lib, **kw)
+        torch.cuda.synchronize()
+        return out, written_tape(tape, 2, 13, 48 * 48)
+
+    spec, spec_tape = run(_build.load_library(counts, unroll))
+    dyn, dyn_tape = run(_build.load_library())
+    for got, want in zip(spec, dyn):
+        for name, g in got._asdict().items():
+            w = getattr(want, name)
+            assert (g is None) == (w is None), name
+            if g is not None:
+                assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                                   w.view(torch.int32) if w.dtype == torch.float32 else w), name
+    for g, w in zip(spec_tape, dyn_tape):
+        assert torch.equal(g, w)
+    K.BUILD_LAUNCHES.clear()
+    args = (scene, inv_p, inv_v, 5, focal, ap)
+    K.trace(*args, **kw)
+    K.trace_progressive(*args, n_frames=3, **kw)
+    K.trace_progressive(*args, n_frames=3, env_table=tables[0], **kw)
+    K.trace_progressive(*args, n_frames=3, env_table=tables[0], **{**kw, "counts": None})
+    K.trace_progressive(*args, n_frames=1, env_table=tables[0], **kw)
+    assert dict(K.BUILD_LAUNCHES) == {None: 4, (*counts, _build.UNROLL): 1}
+
+
+def test_specialised_library_refuses_other_counts(device):
+    """A library built for (4, 0) returns cudaErrorInvalidValue, and
+    launches nothing, for the demo scene's (48, 7); the checks come before
+    any pointer is read, so null pointers do here."""
+    from tpt_torch.kernels import _build
+    lib = _build.load_library((4, 0))
+    assert lib.key == (4, 0, _build.UNROLL) and not hasattr(lib, "tpt_probe_gather")
+    band = (48, 48, 48, 0, 0, 1, 1, 1, 13, 0, 1)   # width .. russian_roulette
+    table = pack_block_table(constant_environment((0.7, 0.8, 1.0), device=device))
+    assert lib.tpt_trace_progressive(*[None] * 5, 48, 7, None, *band, *[None] * 5, None) == 1
+    assert lib.tpt_trace_progressive_env(*[None] * 5, 48, 7, None, *band, table.data_ptr(), 1,
+                                         *[None] * 3, None) == 1
+    assert lib.tpt_trace_onehot(*[None] * 4, 48, 7, None, *band[:4], 0, 1, 13, 0, 1,
+                                *[None] * 5, None) == 1
+    assert lib.tpt_trace_grad_tape(*[None] * 4, 48, 7, None, 0, 48, 48, 48, 0, 1, 13, 0, 1, 0,
+                                   31, *[None] * 3, None) == 1
+    torch.cuda.synchronize()
+
+
 def test_profile_block_splits_the_block(device):
     from tpt_torch.profile_block import profile_blocks
     summary, rows = profile_blocks(64, 64, 3, 1)

@@ -166,3 +166,31 @@ def test_refill_equals_per_frame_loop():
     np.testing.assert_array_equal(got.seed.numpy(), res.seed.numpy())
     np.testing.assert_array_equal(got.ray_count.numpy(), rays.numpy())
     np.testing.assert_allclose(got.rad_sum, rad, **SLOT_TOL)
+
+
+# the pixel that carries the 1080p training step's loss with Russian
+# roulette off (demo scene, default camera, ray depth 13, 1 spp, frame 0;
+# chip_smoke.py prints the pixel and its share of the loss on the card)
+LOSS_PIXEL = (1524, 264)
+
+
+def test_roulette_off_loss_pixel_matches_jax():
+    """Without roulette a path's throughput grows by 1/p at every bounce (p
+    floored at 1e-3), and the loss pixel's path escapes with a throughput
+    above 1e6.  On its row's 16 pixels about it the port's transport holds
+    to tpt's at this file's bars, the loss pixel not flipped and its miss
+    throughput within the slot bar: the loss is the reference's transport,
+    not a port fault."""
+    x, y = LOSS_PIXEL
+    (jtrace, jcp), (ttrace, tcp), _, _ = setup("demo_scene", CameraConfig(), 1920, 1080)
+    px = torch.arange(x - 8, x + 8, dtype=torch.int32)[None]
+    py = torch.full_like(px, y)
+    want = jax.jit(lambda: jint.trace_paths(
+        jtrace, jcp, jnp.asarray(px.numpy()), jnp.asarray(py.numpy()), 1920, 1080,
+        jnp.int32(0), 13, 1, jitter="corner", russian_roulette=False))()
+    got = tint.trace_paths(ttrace, tcp, px, py, 1920, 1080, 0, 13, 1, jitter="corner",
+                           russian_roulette=False)
+    assert_parity(got, want, 0, 0)
+    thr = got.miss_thr[0, :, 0, 8]
+    assert float(thr.max()) > 1e6, thr
+    np.testing.assert_allclose(thr, np.asarray(want.miss_thr)[0, :, 0, 8], **SLOT_TOL)

@@ -159,9 +159,12 @@ def _render_kernel(args, cfg, scene, env_faces, camera, state, t0) -> int:
     traced segments."""
     from .camera import camera_matrices
     from .env import pack_block_table
-    from .kernels.render import progressive_frames
+    from .kernels.render import kernel_counts, progressive_frames
     from .progressive import samples_per_pixel, save_checkpoint
 
+    # the kernel built for the scene's counts on a CUDA device, as tpt's
+    # render specialises on its accelerator
+    counts = kernel_counts(scene, scene.device)
     env_table = pack_block_table(env_faces,
                                  dtype=torch.bfloat16 if args.env_bf16 else torch.float32,
                                  seamless=args.env_seamless)
@@ -179,7 +182,7 @@ def _render_kernel(args, cfg, scene, env_faces, camera, state, t0) -> int:
             state, scene, env_table, inv_p, inv_v, state.frame,
             camera.focal_length, camera.aperture_diameter,
             width=cfg.width, height=cfg.height, ray_depth=cfg.ray_depth,
-            spp=cfg.spp, n_frames=chunk, n_valid=n, jitter=cfg.jitter)
+            spp=cfg.spp, counts=counts, n_frames=chunk, n_valid=n, jitter=cfg.jitter)
         done += n
         total_rays += int(rays)
         dt = time.time() - t0

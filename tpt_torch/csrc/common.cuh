@@ -2,6 +2,20 @@
 // vector helpers, the PCG random stream, the scene's geometry in shared
 // memory with the closest-hit fold, and the camera sample.
 //
+// Static counts.  A build may fix the scene's primitive counts at compile
+// time, as tpt's accelerator path compiles its trace kernels for a scene's
+// static (n_spheres, n_cuboids) (tpt/kernels/trace.py:197-212):
+// -DTPT_NUM_SPHERES=ns -DTPT_NUM_CUBOIDS=nc -DTPT_UNROLL=1 unrolls the
+// fold's primitive loops fully over the constant trip counts, TPT_UNROLL=0
+// keeps them rolled at the constant bound (the two forms Mosaic allows,
+// tpt/kernels/trace.py:46-50).  The fold (closest_hit) and the staging
+// (stage_geometry) take their trip counts from sphere_count / cuboid_count,
+// so every kernel that folds the scan gets the constants through them; a
+// specialised build's entry points refuse other counts (counts_match).
+// Without the defines one build serves any scene, the counts read at run
+// time.  The arithmetic and its order are the same in both builds, so
+// under -fmad=false they give the same bits.
+//
 // Parity policy.  The plain PyTorch versions (tpt_torch/integrator.py) round
 // every operation on its own, so every kernel is compiled with -fmad=false
 // and without --use_fast_math (IEEE division and square root stay on): a
@@ -89,6 +103,37 @@ __device__ __forceinline__ V3 cosine_hemisphere(V3 n, float r_z, float r_angle) 
   return normalize(n + hemisphere_offset(r_z, r_angle));
 }
 
+// ---- the fold's trip counts: the build's constants or the run-time counts ----
+#if defined(TPT_NUM_SPHERES) != defined(TPT_NUM_CUBOIDS)
+#error "a specialised build defines both TPT_NUM_SPHERES and TPT_NUM_CUBOIDS"
+#endif
+#ifdef TPT_NUM_SPHERES
+#if !defined(TPT_UNROLL) || (TPT_UNROLL != 0 && TPT_UNROLL != 1)
+#error "a specialised build defines TPT_UNROLL as 0 or 1"
+#endif
+constexpr bool kStaticCounts = true;
+constexpr int kStaticSpheres = TPT_NUM_SPHERES;
+constexpr int kStaticCuboids = TPT_NUM_CUBOIDS;
+static_assert(0 <= kStaticSpheres && kStaticSpheres <= kMaxSpheres, "TPT_NUM_SPHERES");
+static_assert(0 <= kStaticCuboids && kStaticCuboids <= kMaxCuboids, "TPT_NUM_CUBOIDS");
+#else
+constexpr bool kStaticCounts = false;
+constexpr int kStaticSpheres = 0;
+constexpr int kStaticCuboids = 0;
+#endif
+
+__host__ __device__ __forceinline__ int sphere_count(int ns) {
+  return kStaticCounts ? kStaticSpheres : ns;
+}
+__host__ __device__ __forceinline__ int cuboid_count(int nc) {
+  return kStaticCounts ? kStaticCuboids : nc;
+}
+// Whether a launch's counts are those the build was made for (any counts
+// for the dynamic build).
+inline bool counts_match(int ns, int nc) {
+  return !kStaticCounts || (ns == kStaticSpheres && nc == kStaticCuboids);
+}
+
 // ---- scene geometry in shared memory and the closest-hit fold ----
 struct GeomSmem {
   float sph[kMaxSpheres * 4];             // center.xyz, radius
@@ -101,6 +146,8 @@ struct GeomSmem {
 __device__ __forceinline__ void stage_geometry(GeomSmem& g, const float* sphere_pos_radius,
                                                const float* cuboid_min, const float* cuboid_max,
                                                int ns, int nc) {
+  ns = sphere_count(ns);
+  nc = cuboid_count(nc);
   for (int k = threadIdx.x; k < ns * 4; k += blockDim.x) g.sph[k] = sphere_pos_radius[k];
   for (int k = threadIdx.x; k < nc * 3; k += blockDim.x) {
     g.cmin[k] = cuboid_min[k];
@@ -137,11 +184,20 @@ struct Hit {
 
 // Closest-hit fold in the shader's scan order (compute.glsl:226-258):
 // spheres first, then cuboids; a candidate wins when ok && t2 > 0 &&
-// t1 < best (raw t1 against the incumbent's smallest positive t).
+// t1 < best (raw t1 against the incumbent's smallest positive t).  A
+// specialised build scans its constant counts, its loops unrolled fully
+// (TPT_UNROLL=1) or kept rolled (0).
 __device__ __forceinline__ Hit closest_hit(const GeomSmem& sc, int ns, int nc, V3 o, V3 d) {
+  ns = sphere_count(ns);
+  nc = cuboid_count(nc);
   float best_t = kFloatMax;
   int best_idx = -1;
   bool inside = false;
+#if defined(TPT_NUM_SPHERES) && TPT_UNROLL
+#pragma unroll
+#elif defined(TPT_NUM_SPHERES)
+#pragma unroll 1
+#endif
   for (int i = 0; i < ns; ++i) {
     V3 oc = o - make(sc.sph[4 * i], sc.sph[4 * i + 1], sc.sph[4 * i + 2]);
     float r = sc.sph[4 * i + 3];
@@ -158,6 +214,11 @@ __device__ __forceinline__ Hit closest_hit(const GeomSmem& sc, int ns, int nc, V
       inside = best_t == t2;
     }
   }
+#if defined(TPT_NUM_SPHERES) && TPT_UNROLL
+#pragma unroll
+#elif defined(TPT_NUM_SPHERES)
+#pragma unroll 1
+#endif
   for (int i = 0; i < nc; ++i) {
     float t1, t2;
     slab(o, d, &sc.cmin[3 * i], &sc.cmax[3 * i], t1, t2);

@@ -70,8 +70,16 @@
 // traffic is small except, without kEnv, the 2 * F * spp * 3 floats per
 // pixel of miss slots.
 //
-// Left for later: a warp-pooled queue of (pixel, frame) items, FMA
-// contraction, and compile-time primitive counts.
+// Static counts (common.cuh): built with -DTPT_NUM_SPHERES, -DTPT_NUM_CUBOIDS
+// and -DTPT_UNROLL, every instantiation scans the scene's constant counts,
+// the primitive loops unrolled fully or kept rolled, as tpt's accelerator
+// path builds pallas_trace and pallas_trace_progressive for a scene's
+// static counts (tpt/kernels/trace.py:197-212, :425-433); its entry points
+// then refuse other counts.  tpt_torch/kernels/_build.py keys each such
+// build by its counts and unroll beside the one dynamic build.
+//
+// Left for later: a warp-pooled queue of (pixel, frame) items and FMA
+// contraction.
 //
 // Parity policy: see common.cuh.  Every float operation repeats the plain
 // PyTorch version's, in the same order, with no FMA contraction.
@@ -464,6 +472,7 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
            int32_t* ray_count, int64_t* seed, void* stream) {
   if (num_spheres < 0 || num_spheres > kMaxSpheres || num_cuboids < 0 ||
       num_cuboids > kMaxCuboids || (kTable && num_spheres + num_cuboids > kAttrRows) ||
+      !counts_match(num_spheres, num_cuboids) ||
       width <= 0 || height <= 0 || n_rows <= 0 || n_frames < 0 || n_valid < 0 ||
       n_valid > n_frames || spp <= 0 || ray_depth < 0 ||
       (kEnv && (env.rows == nullptr || env.size < 1 ||
@@ -496,7 +505,8 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
 // rad_sum f32[3, n_rows*width]; miss_dir, miss_thr f32[n_frames*spp, 3,
 // n_rows*width]; ray_count i32[n_rows*width]; seed i64[n_rows*width]
 // holding uint32 values.  Each launches on `stream` and returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue without a launch for bad
+// arguments, among them counts other than a specialised build's.
 
 // The select gather, n_frames progressive frames with their miss slots
 // (pallas_trace_progressive, and pallas_trace at n_frames = 1).
@@ -573,7 +583,8 @@ extern "C" int tpt_trace_onehot(
 
 // out: the blocks per SM that cudaOccupancyMaxActiveBlocksPerMultiprocessor
 // gives each instantiation at its launch bound, [select, one-hot table,
-// environment, environment with the bf16 table] (no launch).
+// environment, environment with the bf16 table] (no launch), in this
+// library's build: the dynamic one or one specialised for its counts.
 extern "C" int tpt_trace_layout(int* blocks_per_sm) {
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks_per_sm[0], trace_progressive_kernel<false, false, false>, kBlock, 0);

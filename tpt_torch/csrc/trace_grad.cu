@@ -36,6 +36,17 @@
 // with half_stores only at even bounces) and the decision code (grad.cuh),
 // and each item's live-bounce count.
 //
+// Static counts: like trace.cu, this source may be built for a scene's
+// constant counts (common.cuh), the fold unrolled or rolled at them; the
+// JAX backward always folds static counts (tpt/kernels/trace_grad.py:157-173,
+// whose hoisting of the scene into values is ptxas's choice here: the
+// geometry stays in shared memory, the loop bounds and offsets become
+// constants).  On the H100 that build was slower than the dynamic one at
+// both unrolls, so the paths launch the dynamic build and the specialised
+// one is only compared (tpt_torch/kernels/trace_grad.py).  The adjoint
+// kernel reads the winner from the tape, folds no scan, and is built once
+// for any scene.
+//
 // Ablate modes (timing probes; results meaningless except with every flag
 // set): kFlagStores off writes no carries (the adjoint kernel then replays
 // the first bounce's carry at every bounce); the other flags concern the
@@ -105,7 +116,9 @@ trace_grad_tape_kernel(const float* __restrict__ sphere_pos_radius,
 // pointer is a device buffer: the scene's sphere_pos_radius f32[256, 4],
 // cuboid_min / cuboid_max f32[64, 3]; table f32[128, 24]; cam20 f32[20]; the
 // tape of grad.cuh for n_rows x width pixels (carries, codes, counts).
-// Launches on `stream` and returns cudaGetLastError().
+// Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue without a launch for bad arguments, among them
+// counts other than a specialised build's.
 extern "C" int tpt_trace_grad_tape(
     const float* sphere_pos_radius, const float* cuboid_min, const float* cuboid_max,
     const float* table, int num_spheres, int num_cuboids, const float* cam20, int frame,
@@ -113,7 +126,8 @@ extern "C" int tpt_trace_grad_tape(
     int russian_roulette, int half_stores, int flags, float* carries, int32_t* codes,
     int32_t* counts, void* stream) {
   if (num_spheres < 0 || num_spheres > tpt::kMaxSpheres || num_cuboids < 0 ||
-      num_cuboids > tpt::kMaxCuboids || num_spheres + num_cuboids > tpt::kRows || width <= 0 ||
+      num_cuboids > tpt::kMaxCuboids || num_spheres + num_cuboids > tpt::kRows ||
+      !tpt::counts_match(num_spheres, num_cuboids) || width <= 0 ||
       height <= 0 || n_rows <= 0 || spp <= 0 || ray_depth < 0 || ray_depth > tpt::kMaxDepth ||
       flags < 0 || flags > tpt::kFlagsAll) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -127,7 +141,8 @@ extern "C" int tpt_trace_grad_tape(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tape kernel's blocks per SM at its launch bound (the occupancy API).
+// The tape kernel's blocks per SM at its launch bound (the occupancy API),
+// in this library's build.
 extern "C" int tpt_trace_grad_tape_layout(int* blocks_per_sm) {
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, trace_grad_tape_kernel, kBlock, 0));

@@ -311,10 +311,12 @@ class ViewerSession:
         return self._env_table
 
     def _static_counts(self):
-        """The primitive counts the render bounds its scan with: the config's,
-        else None (the scene's own; the kernel takes them at run time, so one
-        build serves any scene)."""
-        return self.cfg.static_counts
+        """The primitive counts the render hands the kernel: the config's,
+        else the scene's on a CUDA device (the kernel built for them; the
+        viewer never adds or removes objects, so they stay fixed), else None
+        (kernels.render.kernel_counts)."""
+        from .kernels.render import kernel_counts
+        return kernel_counts(self.scene, self.device, self.cfg.static_counts)
 
     def render_one(self, n_frames: int = 1):
         """Fold ``n_frames`` progressive frames into the accumulator with

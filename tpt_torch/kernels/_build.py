@@ -7,6 +7,21 @@ the libraries are loaded with ctypes.  A library goes into
 every ``csrc/*.cuh`` header, so an edited source or header rebuilds and an
 unchanged one loads at once.  Nothing is built when the module is imported:
 the CPU tests import every module.
+
+Library sets.  The dynamic set (key ``None``) holds every source, its
+kernels reading the scene's counts at run time.  A specialised set, key
+``(n_spheres, n_cuboids, unroll)`` (:func:`build_key`), holds the two
+sources whose kernels fold the closest-hit scan, ``trace.cu`` and
+``trace_grad.cu``, built with ``-DTPT_NUM_SPHERES``, ``-DTPT_NUM_CUBOIDS``
+and ``-DTPT_UNROLL`` (csrc/common.cuh), as tpt's accelerator path compiles
+its trace kernels for a scene's static counts; those flags enter the hash,
+so each key has its own libraries.  ``unroll`` defaults to ``UNROLL``, the
+form a path's launch takes (tpt_torch.kernels.trace says which launches
+take a specialised set); the other form is built only to be compared.
+:func:`build_all` builds any number of sets with one nvcc process per
+missing library, all started together.  Each library's compiler output,
+ptxas's report and the build's seconds included, is kept beside it as
+``.log``.
 """
 
 from __future__ import annotations
@@ -18,9 +33,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 import types
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
+
+from ..config import MAX_CUBOIDS, MAX_SPHERES
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "csrc"
@@ -32,6 +50,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 MAX_COLS = 32   # csrc/probes.cu kMaxCols
+
+# the sources whose kernels fold the scan, the only ones a specialised set holds
+SPECIALISED_SOURCES = ("trace.cu", "trace_grad.cu")
+UNROLLS = (0, 1)   # rolled at the constant bound, or fully unrolled
+# the form of the specialised sets a path launches: rolled, which beat the
+# full unroll (and the dynamic set on the 1080p block) on the H100
+# (PERF.md section 6, the static-count builds)
+UNROLL = 0
+SECONDS_LINE = "# nvcc seconds: "   # the build's wall time, the last line of a .log
+
+Key = Optional[Tuple[int, int, int]]   # None, or (n_spheres, n_cuboids, unroll)
 
 
 class ColWeights(ctypes.Structure):
@@ -93,65 +122,143 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _sources():
-    return sorted({src for src, _ in ENTRY_POINTS.values()})
+def build_key(counts=None, unroll: int = UNROLL) -> Key:
+    """The key of the library set that serves ``counts`` and ``unroll``:
+    None (the dynamic set) for ``counts=None``, else ``(n_spheres,
+    n_cuboids, unroll)``.  ValueError for an ``unroll`` outside {0, 1} or
+    counts outside the scene's tables."""
+    if unroll not in UNROLLS:
+        raise ValueError(f"unroll must be 0 (rolled) or 1 (fully unrolled), got {unroll!r}")
+    if counts is None:
+        return None
+    ns, nc = (int(c) for c in counts)
+    if not (0 <= ns <= MAX_SPHERES and 0 <= nc <= MAX_CUBOIDS):
+        raise ValueError(f"counts out of range: {(ns, nc)}")
+    return ns, nc, int(unroll)
 
 
-def library_path(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def define_flags(key: Key) -> Tuple[str, ...]:
+    """The -D flags of a set's build (none for the dynamic set)."""
+    if key is None:
+        return ()
+    ns, nc, unroll = key
+    return (f"-DTPT_NUM_SPHERES={ns}", f"-DTPT_NUM_CUBOIDS={nc}", f"-DTPT_UNROLL={unroll}")
+
+
+def _sources(key: Key = None):
+    sources = sorted({src for src, _ in ENTRY_POINTS.values()})
+    return sources if key is None else [s for s in sources if s in SPECIALISED_SOURCES]
+
+
+def _library_path(source: str, key: Key) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + define_flags(key)).encode())
     for path in [SRC_DIR / source] + sorted(SRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / f"lib{Path(source).stem}.so"
 
 
-def ensure_built() -> Tuple[Dict[str, Path], str]:
-    """Compile every library whose hash is not built yet, one nvcc process
-    per source, all started together.  Returns ({source: path}, compiler
-    output of every library, ptxas's report included); the output of a
+def library_path(source: str, counts=None, unroll: int = UNROLL) -> Path:
+    """Where ``source``'s library of the set for ``counts`` and ``unroll``
+    goes (ValueError for a source a specialised set does not hold)."""
+    key = build_key(counts, unroll)
+    if source not in _sources(key):
+        raise ValueError(f"the set {key} holds {_sources(key)}, not {source}")
+    return _library_path(source, key)
+
+
+def build_seconds(path: Path) -> Optional[float]:
+    """The wall seconds of the nvcc run that built the library at ``path``,
+    from its .log (None when the log has no such line)."""
+    log = path.with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    if lines and lines[-1].startswith(SECONDS_LINE):
+        return float(lines[-1][len(SECONDS_LINE):])
+    return None
+
+
+def build_all(keys: Iterable[Key]) -> Dict[Key, Tuple[Dict[str, Path], str]]:
+    """Compile every library of the sets ``keys`` (:func:`build_key`
+    values) that is not built yet, one nvcc process per library, all
+    started together.  Returns {key: ({source: path}, compiler output of
+    every library of the set, ptxas's report included)}; the output of a
     library built before is read from the ``.log`` file kept beside it.
-    Each library is written to a temporary name and renamed into place
-    after its log, so concurrent builds never load a partial file."""
-    paths = {src: library_path(src) for src in _sources()}
+    nvcc writes its output to a temporary log, which gets the build's
+    seconds as its last line; the log and then the library are renamed
+    into place, so concurrent builds (ranks, test workers) never load a
+    partial file.  A failed build raises; nothing falls back."""
+    sets = {key: {src: _library_path(src, key) for src in _sources(key)}
+            for key in dict.fromkeys(keys)}
     jobs = []
     try:
-        for src, path in paths.items():
-            if path.exists():
-                continue
-            path.parent.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-            os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / src)]
-            jobs.append((src, path, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        for src, path, tmp, proc in jobs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc {src} failed ({proc.returncode}):\n{out}")
-            path.with_suffix(".log").write_text(out)
-            os.replace(tmp, path)
+        for key, paths in sets.items():
+            for src, path in paths.items():
+                if path.exists():
+                    continue
+                path.parent.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+                os.close(fd)
+                fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=path.parent)
+                cmd = [find_nvcc(), *NVCC_FLAGS, *define_flags(key), "-o", tmp,
+                       str(SRC_DIR / src)]
+                with os.fdopen(fd, "w") as log:
+                    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+                jobs.append(dict(key=key, src=src, path=path, tmp=tmp, log=tmp_log, proc=proc,
+                                 t0=time.perf_counter(), seconds=None))
+        while any(job["seconds"] is None for job in jobs):
+            for job in jobs:
+                if job["seconds"] is None and job["proc"].poll() is not None:
+                    job["seconds"] = time.perf_counter() - job["t0"]
+            time.sleep(0.05)
+        for job in jobs:
+            out = Path(job["log"]).read_text()
+            if job["proc"].returncode != 0:
+                raise RuntimeError(f"nvcc {job['src']} {' '.join(define_flags(job['key']))} "
+                                   f"failed ({job['proc'].returncode}):\n{out}")
+            with open(job["log"], "a") as log:
+                sep = "" if not out or out.endswith("\n") else "\n"
+                log.write(f"{sep}{SECONDS_LINE}{job['seconds']:.2f}\n")
+            os.replace(job["log"], job["path"].with_suffix(".log"))
+            os.replace(job["tmp"], job["path"])
     finally:
-        for _, _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    log = [f"== {src}\n{path.with_suffix('.log').read_text()}" for src, path in paths.items()
-           if path.with_suffix(".log").exists()]
-    return paths, "".join(log)
+        for job in jobs:
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].wait()
+            for f in (job["tmp"], job["log"]):
+                if os.path.exists(f):
+                    os.unlink(f)
+    return {key: (paths, "".join(f"== {src}\n{path.with_suffix('.log').read_text()}"
+                                 for src, path in paths.items()
+                                 if path.with_suffix(".log").exists()))
+            for key, paths in sets.items()}
+
+
+def ensure_built(counts=None, unroll: int = UNROLL) -> Tuple[Dict[str, Path], str]:
+    """The one set for ``counts`` and ``unroll`` (:func:`build_all`):
+    ({source: path}, compiler output of every library of the set)."""
+    key = build_key(counts, unroll)
+    return build_all([key])[key]
+
+
+def load_library(counts=None, unroll: int = UNROLL) -> types.SimpleNamespace:
+    """The entry points of the set for ``counts`` and ``unroll``, built at
+    first use, with their signatures set, as attributes of one namespace:
+    every entry for the dynamic set, those of trace.cu and trace_grad.cu
+    for a specialised one.  Loaded once per key."""
+    return _load(build_key(counts, unroll))
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> types.SimpleNamespace:
-    """The entry points of the built libraries, with their signatures set,
-    as attributes of one namespace."""
-    paths, _ = ensure_built()
+def _load(key: Key) -> types.SimpleNamespace:
+    paths, _ = build_all([key])[key]
     libs = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
     fns = {}
     for name, (src, argtypes) in ENTRY_POINTS.items():
+        if src not in libs:
+            continue
         fn = getattr(libs[src], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
-    return types.SimpleNamespace(libraries=libs, **fns)
+    return types.SimpleNamespace(key=key, libraries=libs, **fns)

@@ -25,6 +25,20 @@ from ..vecmath import div_scalar
 from .trace import trace, trace_progressive
 
 
+def kernel_counts(scene, device, configured: Tuple[int, int] | None = None):
+    """The counts a render hands the trace kernel, chosen as the JAX package
+    chooses them (tpt/cli.py:154-158, tpt/interactive.py:340-344): the
+    configured counts, else the scene's own on a CUDA device (where a
+    block's environment-mode launch then takes the kernel built for them,
+    kernels.trace.forward_library), else None (on the CPU the plain scan
+    reads the scene's counts)."""
+    if configured is not None:
+        return tuple(configured)
+    if torch.device(device).type == "cuda":
+        return tuple(int(c) for c in scene.counts)
+    return None
+
+
 def render_fields(scene, env_faces, inv_proj, inv_view, view_pos, frame,
                   focal_length, aperture_diameter,
                   *, width: int, height: int, ray_depth: int, spp: int,

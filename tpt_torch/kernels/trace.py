@@ -29,15 +29,26 @@ a run can show that its main path went through the kernel;
 table mode and in the environment mode, ``ENV_BF16_LAUNCHES`` those of the
 environment mode with a bf16 table.
 
-Keyword arguments are those of the JAX wrappers.  ``counts`` (static
-primitive counts there) is accepted and bounds the scan like the scene's
-own counts; the kernel reads the counts at run time, so one build serves
-any scene.  Seeds come back as int64 tensors holding uint32 values
+Keyword arguments are those of the JAX wrappers.  ``counts`` bounds the
+scan in place of the scene's own counts.  The kernel comes in builds
+(tpt_torch.kernels._build): the dynamic one reads the counts at run time
+and serves any scene; one built for given counts has them as compile-time
+constants, as tpt's accelerator path compiles its kernels for a scene's
+static counts.  The two give the same bits.  On a CUDA device a launch
+takes the build the card measured faster for it (:func:`forward_library`):
+an environment-mode block with given ``counts`` (the render, viewer and
+block-profiler paths) the build for those counts, every other launch the
+dynamic build.  A build is made at its first use; one that fails raises,
+and nothing falls back to another build or to the plain version.
+``BUILD_LAUNCHES`` counts launches by build key (``None`` for the dynamic
+build, ``(n_spheres, n_cuboids, unroll)`` for one built for counts).
+Seeds come back as int64 tensors holding uint32 values
 (tpt_torch.rng).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
@@ -48,11 +59,13 @@ from ..integrator import (ATTR_ROWS, ProgressiveTraceResult, TraceResult, build_
                           camera_params, make_onehot_gather_trace_fn, make_scene_scan_fn,
                           make_scene_trace_fn, trace_paths)
 from ..integrator import trace_progressive as _integrator_trace_progressive
+from ._build import load_library
 
 LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
 ENV_LAUNCHES = 0
 ENV_BF16_LAUNCHES = 0
+BUILD_LAUNCHES = collections.Counter()   # build key -> launches (module docstring)
 GATHERS = ("select", "onehot")
 
 _SCENE_SHAPES = {
@@ -174,12 +187,29 @@ def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch
     ]).contiguous()
 
 
+# the fewest frames a launch must trace for the build for its counts to pay
+BLOCK_FRAMES = 2
+
+
+def forward_library(counts, env_mode: bool, n_frames: int):
+    """The library a launch takes on the card, by what the card measured
+    (PERF.md section 6, the static-count builds; NVIDIA H100): with given
+    ``counts`` the environment mode ran 3.0-3.7% faster through the build
+    for them (rolled, ``_build.UNROLL``) than through the dynamic build at
+    2 to 30 frames a launch at 1080p, while its one-frame launch ran 2.2%
+    slower, as did the select gather's, and the full unroll lost
+    everywhere.  So an environment-mode launch of at least BLOCK_FRAMES
+    frames with given counts takes the build for them, every other launch
+    the dynamic one."""
+    return load_library(counts if env_mode and n_frames >= BLOCK_FRAMES else None)
+
+
 def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, *,
             width, height, ray_depth, spp, n_frames, n_valid, counts, n_rows, row0,
-            jitter, rr, gather="select", env_table=None) -> ProgressiveTraceResult:
+            jitter, rr, gather="select", env_table=None, lib=None) -> ProgressiveTraceResult:
+    """One launch of the kernel from ``lib`` (a _build.load_library set;
+    by default :func:`forward_library`'s)."""
     global LAUNCHES, ONEHOT_LAUNCHES, ENV_LAUNCHES, ENV_BF16_LAUNCHES
-    from ._build import load_library
-
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"the trace kernel runs on CUDA tensors, got {device}")
@@ -212,7 +242,8 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
         miss_thr = torch.empty_like(miss_dir)
     cam = _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter)
 
-    lib = load_library()
+    if lib is None:
+        lib = forward_library(counts, env_table is not None, n_frames)
     scene_ptrs = (scene.sphere_pos_radius.data_ptr(), scene.sphere_material.data_ptr(),
                   scene.cuboid_min.data_ptr(), scene.cuboid_max.data_ptr(),
                   scene.cuboid_material.data_ptr())
@@ -246,6 +277,7 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
     ONEHOT_LAUNCHES += int(gather == "onehot")
     ENV_LAUNCHES += int(env_table is not None)
     ENV_BF16_LAUNCHES += int(env_table is not None and env_bf16)
+    BUILD_LAUNCHES[lib.key] += 1
     return ProgressiveTraceResult(rad_sum=rad_sum, miss_dir=miss_dir, miss_thr=miss_thr,
                                   ray_count=ray_count, seed=seed)
 
@@ -269,7 +301,7 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
     ``ValueError``).  Each sample then
     adds ``radiance + miss_thr * sample_environment_blocked(env_table,
     miss_dir)`` to ``rad_sum`` when it ends, and miss_dir / miss_thr are
-    None."""
+    None.  ``counts``: the module docstring."""
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
                   n_frames=n_frames, counts=counts, row0=row0, jitter=jitter, rr=rr,
                   env_table=env_table)
@@ -294,7 +326,8 @@ def trace(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
     and reads the winners from build_attr_table(scene, counts); its results
     are those of ``gather="select"``, bit for bit.  Returns radiance
     f32[3, n_rows, width] summed over spp, miss_dir / miss_thr
-    f32[spp, 3, n_rows, width], ray_count i32 and seed i64."""
+    f32[spp, 3, n_rows, width], ray_count i32 and seed i64.  ``counts``:
+    the module docstring."""
     _check_gather(gather, counts)
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
                   counts=counts, row0=row0, jitter=jitter, rr=rr, gather=gather)

@@ -35,6 +35,13 @@ entries (measure-zero events such as an axis-parallel ray on a cuboid
 winner) are zeroed, and their count is returned as a device tensor, so
 reading it is the caller's choice of when to synchronise.
 
+Both kernels come from the dynamic build (tpt_torch.kernels._build).  The
+tape kernel folds the closest-hit scan, and csrc/trace_grad.cu can be built
+for a scene's static counts as the JAX backward always is; on the H100 that
+build was slower at both unrolls (PERF.md section 6, the static-count
+builds), so no path launches it: :func:`_tape_counts` takes it as ``lib``
+for comparisons.  The adjoint kernel reads the winners from the tape.
+
 ``GRAD_LAUNCHES`` counts backward calls on the card (one per
 :func:`trace_grad`), ``TAPE_LAUNCHES`` and ``ADJOINT_LAUNCHES`` each
 kernel's launches (one per row chunk).
@@ -53,6 +60,7 @@ from ..config import MAX_CUBOIDS, MAX_SPHERES
 from ..integrator import (ATTR_COLS, ATTR_ROWS, CameraParams, TraceResult,
                           build_attr_table, make_scene_scan_fn, make_table_trace_fn,
                           trace_paths)
+from ._build import load_library
 from .trace import pixel_band, trace
 
 N_CAM = 20  # ip00 ip01 ip02 ip10 ip11 ip12, right, up, backward, eye, focal, aperture
@@ -268,8 +276,8 @@ def _empty_tape(device, words):
 
 
 def _launch_tape(lib, args, counts, band, tape, stream):
-    """One launch of the tape kernel; ``band`` holds its 11 int arguments
-    from the frame to the ablate flags."""
+    """One launch of the tape kernel of ``lib``; ``band`` holds its 11 int
+    arguments from the frame to the ablate flags."""
     global TAPE_LAUNCHES
     err = lib.tpt_trace_grad_tape(
         args["scene.sphere_pos_radius"].data_ptr(), args["scene.cuboid_min"].data_ptr(),
@@ -296,8 +304,6 @@ def _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, *, width, heigh
             ray_depth, spp, counts, n_rows, row0, jitter, rr, half_stores,
             ablate) -> GradResult:
     global GRAD_LAUNCHES, ADJOINT_LAUNCHES
-    from ._build import load_library
-
     device = _cuda_device(table)
     npix = n_rows * width
     args = _device_inputs(device, scene, table, cam20, (g_rad, g_missd, g_misst), npix, spp)
@@ -331,26 +337,27 @@ def _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, *, width, heigh
 
 def _tape_counts(scene, table, cam20, frame, *, width: int, height: int, ray_depth: int,
                 spp: int, counts: Tuple[int, int], n_rows: int | None = None, row0: int = 0,
-                jitter: str = "corner", rr: bool = True) -> torch.Tensor:
+                jitter: str = "corner", rr: bool = True, tape: bool = False, lib=None):
     """The tape kernel alone over one band (CUDA tensors only): each (pixel,
     sample) item's live bounces, i32[spp, n_rows, width].  Their sum over
     the samples is the forward kernel's ``ray_count`` exactly when the tape
-    kernel took the forward kernel's decisions."""
-    from ._build import load_library
-
+    kernel took the forward kernel's decisions.  ``tape=True`` returns the
+    whole tape (carries, codes, counts) instead.  ``lib``: the library set
+    whose tape kernel runs (_build.load_library; the dynamic one by
+    default)."""
     _check_args(counts, jitter, spp, ray_depth)
     n_rows = height if n_rows is None else n_rows
     device = _cuda_device(table)
     args = _device_inputs(device, scene, table, cam20, None, n_rows * width, spp)
     if tape_bytes(width, n_rows, spp, ray_depth) > TAPE_BYTES_MAX:
         raise ValueError(f"the band's tape passes TAPE_BYTES_MAX ({TAPE_BYTES_MAX} bytes)")
-    tape = _empty_tape(device, _tape_words(n_rows * width, spp, ray_depth, False))
-    lib = load_library()
+    words = _empty_tape(device, _tape_words(n_rows * width, spp, ray_depth, False))
+    lib = lib or load_library()
     with torch.cuda.device(device):
         _launch_tape(lib, args, counts, _band_ints(frame, width, height, n_rows, row0, spp,
                                                    ray_depth, jitter, rr, False, "none"),
-                     tape, torch.cuda.current_stream(device).cuda_stream)
-    return tape[2].view(spp, n_rows, width)
+                     words, torch.cuda.current_stream(device).cuda_stream)
+    return words if tape else words[2].view(spp, n_rows, width)
 
 
 def trace_grad(scene, table, cam20, frame, g_rad, g_missd, g_misst, *,

@@ -10,10 +10,12 @@ spawned rank imports the module that holds it.
 
     from tpt_torch.parallel import launch
     from tpt_torch.parallel.runs import run_jobs
-    results = launch(run_jobs, 4, setup, jobs, backend="gloo", device="cpu")
+    results = launch(run_jobs, 4, setup, jobs, backend="gloo")
 
 Each rank runs with one intra-op thread (``torch.set_num_threads(1)``).
-``device="cuda"`` puts rank r on card ``r % device_count`` (``"cuda:0"``
+``device="cuda"``, the default, puts rank r on card ``r % device_count``
+and raises at once where there is no card (``device="cpu"`` asks for the
+CPU, as the tests do); ``"cuda:0"``
 puts every rank on card 0, as a smoke run on one card does); NCCL needs a
 card for each rank, so ranks that share a card use gloo, which reduces CUDA
 tensors through host memory.
@@ -55,14 +57,18 @@ def _rank_main(rank, fn, args, world_size, init_method, backend, device, out_dir
         dist.destroy_process_group()
 
 
-def launch(fn, world_size: int, *args, backend: str | None = None, device="cpu",
+def launch(fn, world_size: int, *args, backend: str | None = None, device="cuda",
            timeout: float = 900.0) -> list:
     """Run ``fn(*args)`` on ``world_size`` local ranks; returns their
     results in rank order.  A rank that raises makes this raise (the others
     are terminated); a world still running after ``timeout`` seconds is
-    killed and raises ``TimeoutError``."""
+    killed and raises ``TimeoutError``.  A CUDA ``device`` with no card
+    raises RuntimeError before any rank starts."""
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"launch(device={str(device)!r}): no CUDA device is available; "
+                           f"pass device='cpu' to run the ranks on the CPU")
     backend = backend or default_backend(world_size, device)
     with tempfile.TemporaryDirectory(prefix="tpt_launch_") as tmp:
         init_method = "file://" + os.path.join(tmp, "store")

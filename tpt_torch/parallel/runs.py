@@ -52,10 +52,14 @@ def reset_launches():
     for mod, names in COUNTERS:
         for name in names:
             setattr(mod, name, 0)
+    _trace.BUILD_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    return {name: getattr(mod, name) for mod, names in COUNTERS for name in names}
+    """Every counter, and the forward kernel's launches by build key."""
+    out = {name: getattr(mod, name) for mod, names in COUNTERS for name in names}
+    out["BUILD_LAUNCHES"] = dict(_trace.BUILD_LAUNCHES)
+    return out
 
 
 @contextlib.contextmanager
@@ -104,8 +108,8 @@ def _timed(fn, reps: int, mesh, device) -> float:
 
 def build_setup(setup: dict):
     """(scene builder's scene, CameraConfig, env faces, device) of a setup."""
-    from ..cli import _build_scene
-    device = torch.device(setup.get("device", "cpu"))
+    from ..cli import _build_scene, resolve_device
+    device = resolve_device(setup.get("device", "cuda"))
     scene = _build_scene(setup.get("scene", "cornell")).build(device)
     cam = CameraConfig(**setup.get("camera", {}))
     env = setup.get("env", (0.3, 0.45, 0.6))

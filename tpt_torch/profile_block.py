@@ -3,7 +3,8 @@ training step, goes on a CUDA card.
 
 Renders the demo scene with the 256^2 atmosphere through
 tpt_torch.kernels.render.progressive_frames at the main path's size
-(1920x1080, 30-frame blocks): one warm-up block, then two blocks under
+(1920x1080, 30-frame blocks), through the kernel built for the scene's
+counts as ``cli render`` runs it: one warm-up block, then two blocks under
 torch.profiler (CPU and CUDA activities), the window timed with CUDA
 events.  Device time is split into the trace kernel (which fetches the
 environment itself), the block fold (its elementwise kernels) and the rest
@@ -48,7 +49,7 @@ def profile_blocks(width: int, height: int, n_frames: int, n_blocks: int):
     from .camera import camera_matrices
     from .config import AtmosphereConfig, CameraConfig
     from .env import pack_block_table
-    from .kernels.render import progressive_frames
+    from .kernels.render import kernel_counts, progressive_frames
     from .progressive import init_accumulator
     from .scene import demo_scene
     from .sky import compute_atmosphere
@@ -66,7 +67,7 @@ def profile_blocks(width: int, height: int, n_frames: int, n_blocks: int):
         return progressive_frames(acc, scene, table, inv_p, inv_v, acc.frame,
                                   cam.focal_length, cam.aperture_diameter,
                                   width=width, height=height, ray_depth=13, spp=1,
-                                  n_frames=n_frames)[1]
+                                  counts=kernel_counts(scene, dev), n_frames=n_frames)[1]
 
     block()
     torch.cuda.synchronize()
