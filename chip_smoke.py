@@ -1793,7 +1793,7 @@ def viewer_phase(dev, card, K):
                                     ses.env_table, ip, iv, 0, cam.focal_length,
                                     cam.aperture_diameter, width=WIDTH, height=HEIGHT,
                                     ray_depth=ses.cfg.ray_depth, spp=ses.cfg.spp)
-        fs = frame_stats(lambda: ses.render_one(1), rays=int(one), pixels=WIDTH * HEIGHT)
+        fs = frame_stats(lambda: ses.render_one(1), rays=int(one))
     phase("viewer", f"ViewerSession(size=256, device='cuda') -> set_size({WIDTH}, {HEIGHT}); "
           f"render_one({BLOCK}) twice through the {build_name(PATH_BUILD)} build, "
           f"bit-equal to progressive_frames without counts, the dynamic build ({launches} "

@@ -388,12 +388,11 @@ def test_randomize_materials_matches_tpt():
 
 
 def test_frame_stats_reports_rates_of_the_work(session):
-    stats = frame_stats(lambda: session.acc.image, rays=1000, pixels=32 * 32, n=3)
-    assert set(stats) == {"ms_per_frame", "mrays_per_s", "est_gflops", "hbm_gb_per_s"}
+    stats = frame_stats(lambda: session.acc.image, rays=1000, n=3)
+    assert set(stats) == {"ms_per_frame", "mrays_per_s"}
     assert stats["ms_per_frame"] > 0
     sec = stats["ms_per_frame"] / 1e3
     assert stats["mrays_per_s"] == pytest.approx(1000 / sec / 1e6)
-    assert stats["est_gflops"] == pytest.approx(1000 * 2300 / sec / 1e9)
 
 
 def test_viewer_defaults_to_the_card_and_imports_without_matplotlib():

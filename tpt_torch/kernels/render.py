@@ -7,7 +7,8 @@ the CPU.  On the block path (``progressive_frames`` with ``n_frames > 1``)
 the kernel also fetches the environment, when a path escapes; the
 per-frame path fetches it with plain torch ops from the kernel's miss
 slots, as the JAX package does with plain XLA.  The block fold is plain
-torch ops.
+torch ops.  A block is the span ``render.block``, its fold ``render.fold``
+(tpt_torch.utils.profiling).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..camera import camera_matrices
 from ..config import CameraConfig, RenderConfig
 from ..integrator import apply_environment, apply_environment_blocked
 from ..progressive import AccumulatorState
+from ..utils.profiling import span, sync
 from ..vecmath import div_scalar
 from .trace import trace, trace_progressive
 
@@ -95,16 +97,21 @@ def progressive_frames(accum: AccumulatorState, scene, env_table,
                   counts=counts, jitter=jitter)
 
     if n_frames > 1:
-        res = trace_progressive(scene, inv_proj, inv_view, frame0, focal_length,
-                                aperture_diameter, n_frames=n_frames, n_valid=n_valid,
-                                env_table=env_table, **kwargs)
-        total = div_scalar(torch.movedim(res.rad_sum, 0, -1), spp)
-        n0 = np.float32(accum.frame)
-        denom = max(n0 + np.float32(n_valid), np.float32(1.0))
-        accum.image.mul_(float(n0)).add_(total).div_(
-            torch.tensor(denom, device=accum.image.device))
-        accum.frame += n_valid
-        return accum, res.ray_count.sum()
+        with span("render.block"):
+            res = trace_progressive(scene, inv_proj, inv_view, frame0, focal_length,
+                                    aperture_diameter, n_frames=n_frames, n_valid=n_valid,
+                                    env_table=env_table, **kwargs)
+            with span("render.fold"):
+                total = div_scalar(torch.movedim(res.rad_sum, 0, -1), spp)
+                n0 = np.float32(accum.frame)
+                denom = max(n0 + np.float32(n_valid), np.float32(1.0))
+                accum.image.mul_(float(n0)).add_(total)
+                with sync("fold_denominator", accum.image.device):
+                    denom = torch.tensor(denom, device=accum.image.device)
+                accum.image.div_(denom)
+                accum.frame += n_valid
+                rays = res.ray_count.sum()
+        return accum, rays
 
     if n_valid == 0:
         return accum, torch.zeros((), dtype=torch.int64, device=accum.image.device)

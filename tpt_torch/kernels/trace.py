@@ -44,6 +44,17 @@ and nothing falls back to another build or to the plain version.
 build, ``(n_spheres, n_cuboids, unroll)`` for one built for counts).
 Seeds come back as int64 tensors holding uint32 values
 (tpt_torch.rng).
+
+Each call of :func:`trace_progressive` and :func:`trace` is the span
+``trace.launch`` (tpt_torch.utils.profiling).  While the profiler records,
+it also counts, by path (``env`` for environment-mode launches,
+``progressive`` for the other refill launches, ``select`` or ``onehot`` for
+one frame), the traced segments ``trace.<path>.segments`` and
+``trace.<path>.warp_max_segments``, the sum over each warp (32 consecutive
+pixels of the band, one thread a pixel in row-major order, the last warp
+padded with zeros) of its longest path: lane efficiency is ``segments /
+(32 warp_max_segments)``, as tpt_torch.kernels.trace_grad.lane_efficiency
+computes it from the same :func:`warp_segments`, kept on the device.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from ..integrator import (ATTR_ROWS, ProgressiveTraceResult, TraceResult, build_
                           camera_params, make_onehot_gather_trace_fn, make_scene_scan_fn,
                           make_scene_trace_fn, trace_paths)
 from ..integrator import trace_progressive as _integrator_trace_progressive
+from ..utils import profiling
 from ._build import load_library
 
 LAUNCHES = 0
@@ -177,14 +189,39 @@ def trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
         env_table=env_table)
 
 
+def _host_matrix(m) -> torch.Tensor:
+    """A 4x4 matrix as f32[16] on the host (from a CUDA device, a
+    synchronising copy)."""
+    t = torch.as_tensor(m, dtype=torch.float32).detach()
+    with profiling.sync("camera_matrix", t.device):
+        return t.cpu().reshape(16)
+
+
 def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch.Tensor:
     """f32[34] on the host: inv_proj and inv_view row-major, focal length,
     aperture diameter (the TPU kernel's packed SMEM camera)."""
     return torch.cat([
-        torch.as_tensor(inv_proj, dtype=torch.float32).detach().cpu().reshape(16),
-        torch.as_tensor(inv_view, dtype=torch.float32).detach().cpu().reshape(16),
+        _host_matrix(inv_proj), _host_matrix(inv_view),
         torch.tensor([float(focal_length), float(aperture_diameter)], dtype=torch.float32),
     ]).contiguous()
+
+
+def warp_segments(ray_count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the traced segments, the sum over each warp, 32 consecutive pixels
+    with the last one padded with zeros, of its longest path) of integer
+    per-pixel path lengths, as int64 tensors on their device (no sync)."""
+    n = ray_count.detach().reshape(-1)
+    if n.numel() % 32:
+        n = torch.cat([n, n.new_zeros(-n.numel() % 32)])
+    return n.sum(dtype=torch.int64), n.view(-1, 32).amax(dim=1).sum(dtype=torch.int64)
+
+
+def _count_lanes(path: str, ray_count: torch.Tensor):
+    """Add a launch's :func:`warp_segments` to the counters of ``path``
+    (module docstring)."""
+    segments, warp_max = warp_segments(ray_count)
+    profiling.count(f"trace.{path}.segments", segments)
+    profiling.count(f"trace.{path}.warp_max_segments", warp_max)
 
 
 # the fewest frames a launch must trace for the build for its counts to pay
@@ -305,14 +342,20 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
                   n_frames=n_frames, counts=counts, row0=row0, jitter=jitter, rr=rr,
                   env_table=env_table)
-    if scene.device.type == "cpu":
-        return trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
-                                       aperture_diameter, n_valid=n_valid,
-                                       n_rows=n_rows, **kwargs)
-    n_valid = n_frames if n_valid is None else int(n_valid)
-    _check_args(jitter, spp, ray_depth, n_frames, n_valid)
-    return _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter,
-                   n_valid=n_valid, n_rows=height if n_rows is None else n_rows, **kwargs)
+    with profiling.span("trace.launch"):
+        if scene.device.type == "cpu":
+            res = trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
+                                          aperture_diameter, n_valid=n_valid,
+                                          n_rows=n_rows, **kwargs)
+        else:
+            n_valid = n_frames if n_valid is None else int(n_valid)
+            _check_args(jitter, spp, ray_depth, n_frames, n_valid)
+            res = _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter,
+                          n_valid=n_valid, n_rows=height if n_rows is None else n_rows,
+                          **kwargs)
+    if profiling.enabled():
+        _count_lanes("env" if env_table is not None else "progressive", res.ray_count)
+    return res
 
 
 def trace(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
@@ -331,12 +374,17 @@ def trace(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
     _check_gather(gather, counts)
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
                   counts=counts, row0=row0, jitter=jitter, rr=rr, gather=gather)
-    if scene.device.type == "cpu":
-        return trace_plain(scene, inv_proj, inv_view, frame, focal_length,
-                           aperture_diameter, n_rows=n_rows, **kwargs)
-    _check_args(jitter, spp, ray_depth, 1, 1)
-    res = _launch(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
-                  n_frames=1, n_valid=1, n_rows=height if n_rows is None else n_rows,
-                  **kwargs)
-    return TraceResult(radiance=res.rad_sum, miss_dir=res.miss_dir,
-                       miss_thr=res.miss_thr, ray_count=res.ray_count, seed=res.seed)
+    with profiling.span("trace.launch"):
+        if scene.device.type == "cpu":
+            res = trace_plain(scene, inv_proj, inv_view, frame, focal_length,
+                              aperture_diameter, n_rows=n_rows, **kwargs)
+        else:
+            _check_args(jitter, spp, ray_depth, 1, 1)
+            res = _launch(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
+                          n_frames=1, n_valid=1, n_rows=height if n_rows is None else n_rows,
+                          **kwargs)
+            res = TraceResult(radiance=res.rad_sum, miss_dir=res.miss_dir,
+                              miss_thr=res.miss_thr, ray_count=res.ray_count, seed=res.seed)
+    if profiling.enabled():
+        _count_lanes(gather, res.ray_count)
+    return res

@@ -44,7 +44,8 @@ for comparisons.  The adjoint kernel reads the winners from the tape.
 
 ``GRAD_LAUNCHES`` counts backward calls on the card (one per
 :func:`trace_grad`), ``TAPE_LAUNCHES`` and ``ADJOINT_LAUNCHES`` each
-kernel's launches (one per row chunk).
+kernel's launches (one per row chunk).  Each call of :func:`trace_grad` is
+the span ``trace_grad.launch`` (tpt_torch.utils.profiling).
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ from ..config import MAX_CUBOIDS, MAX_SPHERES
 from ..integrator import (ATTR_COLS, ATTR_ROWS, CameraParams, TraceResult,
                           build_attr_table, make_scene_scan_fn, make_table_trace_fn,
                           trace_paths)
+from ..utils import profiling
 from ._build import load_library
-from .trace import pixel_band, trace
+from .trace import pixel_band, trace, warp_segments
 
 N_CAM = 20  # ip00 ip01 ip02 ip10 ip11 ip12, right, up, backward, eye, focal, aperture
 ABLATE_MODES = ("none", "nocam", "nostores", "nodtbl", "norev", "primalonly")
@@ -104,8 +106,12 @@ def camera_vector(inv_proj, inv_view, focal_length, aperture_diameter,
     device = ip.device if device is None else torch.device(device)
     parts = [ip[0, 0], ip[0, 1], ip[0, 2], ip[1, 0], ip[1, 1], ip[1, 2]]
     parts += [iv[r, c] for c in range(4) for r in range(3)]
-    parts += [torch.as_tensor(x, dtype=torch.float32).reshape(()).to(ip.device)
-              for x in (focal_length, aperture_diameter)]
+    for x in (focal_length, aperture_diameter):
+        x = torch.as_tensor(x, dtype=torch.float32).reshape(())
+        if x.device != ip.device:   # a copy between the host and the device synchronises
+            with profiling.sync("camera_scalar", x.device, ip.device):
+                x = x.to(ip.device)
+        parts.append(x)
     return torch.stack(parts).to(device)  # one copy to the device
 
 
@@ -212,12 +218,8 @@ def lane_efficiency(ray_count: torch.Tensor) -> float:
     pixel's path: the sum of the per-pixel path lengths ``ray_count`` over
     32 x the sum, over each 32 consecutive pixels (a warp; the last one
     padded with zeros), of their longest path."""
-    n = ray_count.detach().reshape(-1).to(torch.float64)
-    total = float(n.sum())
-    if total == 0.0:
-        return 1.0
-    n = torch.nn.functional.pad(n, (0, -n.numel() % 32))
-    return total / (32.0 * float(n.reshape(-1, 32).amax(dim=1).sum()))
+    total, warp_max = (int(x) for x in warp_segments(ray_count))
+    return total / (32.0 * warp_max) if total else 1.0
 
 
 _WORKSPACES = {}   # (device index, stream) -> (workspace, grid)
@@ -377,17 +379,18 @@ def trace_grad(scene, table, cam20, frame, g_rad, g_missd, g_misst, *,
     than "none" is a timing probe whose results mean nothing)."""
     _check_args(counts, jitter, spp, ray_depth, ablate)
     n_rows = height if n_rows is None else n_rows
-    if table.device.type == "cpu":
-        if ablate != "none":
-            raise ValueError("ablate is a probe of the CUDA kernel")
-        return trace_grad_plain(scene, table, cam20, frame, g_rad, g_missd, g_misst,
-                                width=width, height=height, ray_depth=ray_depth, spp=spp,
-                                counts=counts, n_rows=n_rows, row0=row0, jitter=jitter,
-                                rr=rr)
-    return _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, width=width,
-                   height=height, ray_depth=ray_depth, spp=spp, counts=counts,
-                   n_rows=n_rows, row0=row0, jitter=jitter, rr=rr,
-                   half_stores=half_stores, ablate=ablate)
+    with profiling.span("trace_grad.launch"):
+        if table.device.type == "cpu":
+            if ablate != "none":
+                raise ValueError("ablate is a probe of the CUDA kernel")
+            return trace_grad_plain(scene, table, cam20, frame, g_rad, g_missd, g_misst,
+                                    width=width, height=height, ray_depth=ray_depth, spp=spp,
+                                    counts=counts, n_rows=n_rows, row0=row0, jitter=jitter,
+                                    rr=rr)
+        return _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, width=width,
+                       height=height, ray_depth=ray_depth, spp=spp, counts=counts,
+                       n_rows=n_rows, row0=row0, jitter=jitter, rr=rr,
+                       half_stores=half_stores, ablate=ablate)
 
 
 _GEOMETRY = ("sphere_pos_radius", "cuboid_min", "cuboid_max")   # what the fold reads

@@ -33,6 +33,7 @@ from .camera import camera_matrices
 from .config import CameraConfig
 from .integrator import apply_environment_blocked
 from .kernels.trace_grad import trace_diff
+from .utils.profiling import span
 from .vecmath import div_scalar
 
 Params = Tuple[torch.Tensor, ...]
@@ -123,7 +124,8 @@ def make_renderer(scene, views: Sequence[CameraConfig], *, width: int, height: i
     device.  Returns ``render(sphere_mat, cuboid_mat, frame, view) ->
     f32[H, W, 3]`` through trace_diff (the trace kernel forward, the
     backward kernel in reverse mode).  Several views make parameters
-    identifiable that one view does not observe."""
+    identifiable that one view does not observe.  Each call is the span
+    ``optim.render`` (tpt_torch.utils.profiling)."""
     dev = scene.device
     mats = []
     for c in views:
@@ -131,12 +133,14 @@ def make_renderer(scene, views: Sequence[CameraConfig], *, width: int, height: i
         mats.append((inv_p.to(dev), inv_v.to(dev), c.focal_length, c.aperture_diameter))
 
     def render(sphere_mat, cuboid_mat, frame, view: int):
-        inv_p, inv_v, focal, aperture = mats[view]
-        s = dataclasses.replace(scene, sphere_material=sphere_mat, cuboid_material=cuboid_mat)
-        res = trace_diff(s, inv_p, inv_v, int(frame), focal, aperture, 0, width=width,
-                         height=height, ray_depth=ray_depth, spp=spp, counts=counts,
-                         jitter=jitter, rr=russian_roulette)
-        return torch.movedim(apply_environment_blocked(res, env_table, spp), 0, -1)
+        with span("optim.render"):
+            inv_p, inv_v, focal, aperture = mats[view]
+            s = dataclasses.replace(scene, sphere_material=sphere_mat,
+                                    cuboid_material=cuboid_mat)
+            res = trace_diff(s, inv_p, inv_v, int(frame), focal, aperture, 0, width=width,
+                             height=height, ray_depth=ray_depth, spp=spp, counts=counts,
+                             jitter=jitter, rr=russian_roulette)
+            return torch.movedim(apply_environment_blocked(res, env_table, spp), 0, -1)
 
     return render
 
@@ -148,23 +152,33 @@ def make_inverse_step(render, optimizer: ClippedAdam, n_views: int, grad_frames:
     with ``params = (sphere_material, cuboid_material)`` and ``targets``
     f32[grad_frames, n_views, H, W, 3].  The loss is the pixel MSE averaged
     over the views and ``grad_frames`` independent RNG frames;
-    ``param_mask`` freezes masked-out entries."""
+    ``param_mask`` freezes masked-out entries.  Each call is the span
+    ``optim.step``, its phases the spans ``optim.render``, ``optim.loss``
+    (a render's squared error, and the mean), ``optim.backward`` (the parent
+    of the backward's spans on autograd's threads) and ``optim.adam``
+    (tpt_torch.utils.profiling)."""
 
     def step(params, opt_state, frame, targets):
-        leaves = tuple(p.detach().requires_grad_(True) for p in params)
-        total = None
-        for f in range(grad_frames):
-            for v in range(n_views):
-                err = render(*leaves, int(frame) * grad_frames + f, v) - targets[f, v]
-                term = torch.mean(err * err)
-                total = term if total is None else total + term
-        loss = div_scalar(total, grad_frames * n_views)
-        grads = torch.autograd.grad(loss, leaves)
-        if param_mask is not None:
-            grads = tuple(g * m for g, m in zip(grads, param_mask))
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = tuple(p.detach() + u for p, u in zip(params, updates))
-        return params, opt_state, loss.detach()
+        with span("optim.step"):
+            leaves = tuple(p.detach().requires_grad_(True) for p in params)
+            total = None
+            for f in range(grad_frames):
+                for v in range(n_views):
+                    err = render(*leaves, int(frame) * grad_frames + f, v)
+                    with span("optim.loss"):
+                        err = err - targets[f, v]
+                        term = torch.mean(err * err)
+                        total = term if total is None else total + term
+            with span("optim.loss"):
+                loss = div_scalar(total, grad_frames * n_views)
+            with span("optim.backward", for_workers=True):
+                grads = torch.autograd.grad(loss, leaves)
+            with span("optim.adam"):
+                if param_mask is not None:
+                    grads = tuple(g * m for g, m in zip(grads, param_mask))
+                updates, opt_state = optimizer.update(grads, opt_state, params)
+                params = tuple(p.detach() + u for p, u in zip(params, updates))
+            return params, opt_state, loss.detach()
 
     return step
 

@@ -79,7 +79,8 @@ def profile_blocks(width: int, height: int, n_frames: int, n_blocks: int):
         torch.cuda.synchronize()
     window_ms = start.elapsed_time(end)
     rows = sorted(((k.device_time_total / 1e3, k.count, k.key)
-                   for k in prof.key_averages() if k.device_type.name == "CUDA"),
+                   for k in prof.key_averages()
+                   if k.device_type.name == "CUDA" and not k.key.startswith("tpt::")),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     trace = sum(r[0] for r in rows if "trace_progressive_kernel" in r[2])
@@ -103,11 +104,10 @@ def make_train_bench_step(width: int, height: int, device):
     demo scene from the default camera, ray depth 13, 1 spp, Russian
     roulette on, loss ``mean((img - 0.25)^2)`` over the constant-sky frame,
     SGD with lr 0.01 on the two material tables.  Returns ``step() ->
-    loss``; each call traces the next frame.  Its phases are marked with
-    ``tpt::`` profiler ranges."""
+    loss``; each call traces the next frame.  Its phases are the spans
+    ``forward``, ``env_loss``, ``backward`` and ``optimizer``
+    (tpt_torch.utils.profiling), the profiler ranges ``tpt::<phase>``."""
     import dataclasses
-
-    from torch.profiler import record_function
 
     from .camera import camera_matrices
     from .config import CameraConfig
@@ -115,6 +115,7 @@ def make_train_bench_step(width: int, height: int, device):
     from .integrator import apply_environment_blocked
     from .kernels.trace_grad import trace_diff
     from .scene import demo_scene
+    from .utils.profiling import span
 
     cam = CameraConfig()
     inv_p, inv_v, _ = camera_matrices(cam, width, height)
@@ -127,15 +128,15 @@ def make_train_bench_step(width: int, height: int, device):
         nonlocal params, frame
         leaves = [p.detach().requires_grad_(True) for p in params]
         s = dataclasses.replace(scene, sphere_material=leaves[0], cuboid_material=leaves[1])
-        with record_function("tpt::forward"):
+        with span("forward"):
             res = trace_diff(s, inv_p, inv_v, frame, cam.focal_length, cam.aperture_diameter,
                              width=width, height=height, ray_depth=13, spp=1, counts=(48, 7))
-        with record_function("tpt::env_loss"):
+        with span("env_loss"):
             img = torch.movedim(apply_environment_blocked(res, table, 1), 0, -1)
             loss = torch.mean((img - 0.25) ** 2)
-        with record_function("tpt::backward"):
+        with span("backward", for_workers=True):
             grads = torch.autograd.grad(loss, leaves)
-        with record_function("tpt::optimizer"):
+        with span("optimizer"):
             params = [p - 0.01 * g for p, g in zip(leaves, grads)]
         frame += 1
         return loss.detach()

@@ -23,10 +23,15 @@ from __future__ import annotations
 
 import torch
 
+from .utils.profiling import sync
+
 
 def div_scalar(a: torch.Tensor, s) -> torch.Tensor:
-    """``a / s`` as a correctly rounded f32 division on every device."""
-    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+    """``a / s`` as a correctly rounded f32 division on every device (on a
+    CUDA device the divisor's copy from the host synchronises)."""
+    with sync("div_scalar", a.device):
+        d = torch.tensor(s, dtype=a.dtype, device=a.device)
+    return a / d
 
 
 def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
