@@ -1954,7 +1954,17 @@ def main() -> int:
     times["bound_ms"], times["bound_by"] = trace_bound(
         segments, pixels * BLOCK, pixels, 0, scene.counts,
         env_bytes=table.numel() * table.element_size(), escapes=escapes)
-    times["lane_efficiency"] = G.lane_efficiency(got.ray_count)
+    # the pooled queue's lane efficiency: the segments over 32 x the warps'
+    # loop iterations, which a launch at the same inputs writes
+    iters = torch.empty(K.n_warps(pixels), dtype=torch.int32, device=dev)
+    again = K._launch(scene, ip, iv, 0, focal, ap, n_valid=BLOCK, counts=None, n_rows=HEIGHT,
+                      row0=0, jitter="corner", rr=True, env_table=table, warp_iters=iters, **kw)
+    if not torch.equal(again.ray_count, got.ray_count):
+        raise AssertionError("environment mode, 1080p block: a second launch gave other ray "
+                             "counts")
+    del again
+    times["lane_efficiency"] = segments / (32.0 * int(iters.sum()))
+    times["per_lane_lane_efficiency"] = G.lane_efficiency(got.ray_count)
     phase("refill", f"slot mode: 256x256 4 frames (n_valid 3) and the {WIDTH}x{HEIGHT} "
           f"{BLOCK}-frame block: integers exact, max abs err {err_tail:.3g} / {err_block:.3g} "
           f"(floats within rtol 1e-3 atol 1e-4); environment mode (256^2 atmosphere): both "
@@ -1962,9 +1972,10 @@ def main() -> int:
           f"mode {times['block_ms']:.2f} ms, slot mode {times['slot_block_ms']:.2f} ms, plain "
           f"{times['block_plain_ms']:.1f} ms, bound {times['bound_ms']:.3f} ms "
           f"({times['bound_by']}, {segments} segments, {escapes} escapes) ({card})")
-    phase("refill", f"lane efficiency (a warp's segments over 32 x its longest lane's): "
+    phase("refill", f"lane efficiency (a warp's segments over 32 x its loop iterations): "
           f"{WIDTH}x{HEIGHT} frame {times['per_frame_lane_efficiency']:.4f}, {BLOCK}-frame "
-          f"block {times['lane_efficiency']:.4f}")
+          f"block {times['lane_efficiency']:.4f} pooled (one pixel a lane would give "
+          f"{times['per_lane_lane_efficiency']:.4f})")
     bf16_entry = env_bf16_phases(dev, card, K, scene, faces, escapes)
 
     # ---- 5. golden image through the kernel ----

@@ -8,43 +8,52 @@ checkout, which builds its own kernels into its own tpt_torch/_build
 (``probe_turns.run_turns``).  The turns are this, this; with
 OTHER_CHECKOUT, one turn of it first and one last.  A turn reports:
 
-  * the forward kernel's instantiations: ptxas's registers, spill stores
-    and loads and stack frame (``chip_smoke.ptxas_report`` of the trace
-    library's kept build log) and the blocks per SM that the occupancy API
+  * the forward kernel's instantiations in the dynamic build and in the
+    build for the demo scene's counts (48, 7), which the render path's
+    blocks take: ptxas's registers, spill stores and loads, stack frame
+    (``chip_smoke.ptxas_report`` of the trace library's kept build log)
+    and static shared bytes, and the blocks per SM that the occupancy API
     gives (the layout entry ``tpt_trace_layout``);
-  * the render path's 30-frame 1080p block (``progressive_frames``: the
-    demo scene, depth 13, 1 spp, the 256^2 atmosphere): ms per block by
-    CUDA events over 3 blocks after one, Mrays/s, and a block's peak
-    allocation above the tensors resident before it;
-  * that block's forward launch alone, in the environment mode: ms by CUDA
-    events, segments, escapes (``chip_smoke.escaped_samples`` of the slot
-    mode's launch at the same inputs) and the bound
-    (``chip_smoke.trace_bound``);
-  * the lane efficiency (``tpt_torch.kernels.trace_grad.lane_efficiency``)
-    of the block's ray counts, which the per-lane refill loop runs at, and
-    of one 1080p frame's;
+  * for the render path's 8-frame block (the offline cell's, ``cli
+    render --chunk``'s default) and its 30-frame block
+    (``progressive_frames`` with the scene's counts: the demo scene, depth
+    13, 1 spp, the 256^2 atmosphere): ms per block by CUDA events over
+    several blocks after one, Mrays/s, a block's peak allocation above the
+    tensors resident before it; its forward launch alone (the environment
+    mode) by CUDA events, with its segments, and the same launch through
+    the dynamic build (the environment mode's launches without counts);
+    its lane efficiency, the segments over 32 x the warps' loop
+    iterations (the kernel's ``warp_iters`` where the checkout has them,
+    else the per-lane loop's, ``tpt_torch.kernels.trace_grad.
+    lane_efficiency`` of the ray counts); and, for the 30-frame block, the
+    escapes
+    (``chip_smoke.escaped_samples`` of the slot mode's launch at the same
+    inputs) and the bound (``chip_smoke.trace_bound``);
   * the per-frame launches: the 1080p frame (depth 13, Russian roulette,
     the train_bench step's) and the inverse demo's two 512^2 depth-8
-    launches (rr off, its grid and default views): ms by CUDA events.
+    launches (rr off, its grid and default views): ms by CUDA events, and
+    the 1080p frame's lane efficiency.
 
-Both checkouts need the forward kernel's environment mode and its layout
-entry.
+Both checkouts need the forward kernel's environment mode, its layout
+entry and the builds for given counts.
 
 Each turn prints one JSON line {"turn", "checkout", "card", "kernels",
-"block", "kernel", "lane_efficiency", "frames"}.
-Exits non-zero if a turn fails.
+"blocks", "frames"}.  Exits non-zero if a turn fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
+import re
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-WIDTH, HEIGHT, DEPTH, BLOCK = 1920, 1080, 13, 30
+WIDTH, HEIGHT, DEPTH, BLOCKS = 1920, 1080, 13, (8, 30)
+COUNTS = (48, 7)
 
 TURN = """
 import importlib.util, os, sys
@@ -64,19 +73,32 @@ def _load(name: str, path: str):
     return mod
 
 
-def kernel_reports(smoke, _build) -> dict:
-    """{instantiation: {"ptxas", "blocks_per_sm"}} of the forward kernel."""
-    paths, _ = _build.ensure_built()
-    report = smoke.ptxas_report(paths["trace.cu"].with_suffix(".log").read_text())
-    # the layout entry's order; a checkout from before the bf16 table has the
-    # first three instantiations, named by two template arguments
-    names = ("<false,false,false>", "<true,false,false>", "<false,true,false>",
-             "<false,true,true>")
-    if f"trace_progressive_kernel{names[0]}" not in report:
-        names = ("<false,false>", "<true,false>", "<false,true>")
-    return {f"trace_progressive_kernel{t}": {"ptxas": report.get(f"trace_progressive_kernel{t}"),
-                                             "blocks_per_sm": n}
-            for t, n in zip(names, smoke.trace_blocks_per_sm())}
+def smem_bytes(log: str) -> dict:
+    """{kernel: static shared bytes} from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)I((?:L\w\d+E)+)E", line)
+        if m:
+            args = re.findall(r"L(\w)(\d+)E", m.group(2))
+            name = m.group(1) + "<" + ",".join(("false", "true")[int(v)] for _, v in args) + ">"
+            continue
+        m = re.search(r"(\d+) bytes smem", line)
+        if name is not None and m:
+            out[name] = int(m.group(1))
+    return out
+
+
+def kernel_reports(smoke, _build, counts=None) -> dict:
+    """{instantiation: {"ptxas", "smem_bytes", "blocks_per_sm"}} of the
+    forward kernel in the build for ``counts`` (None: the dynamic one)."""
+    paths, _ = _build.ensure_built(counts)
+    log = paths["trace.cu"].with_suffix(".log").read_text()
+    report, smem = smoke.ptxas_report(log), smem_bytes(log)
+    names = [f"trace_progressive_kernel<{t}>" for t in (
+        "false,false,false", "true,false,false", "false,true,false", "false,true,true")]
+    per_sm = smoke.trace_blocks_per_sm(_build.load_library(counts))
+    return {n: {"ptxas": report.get(n), "smem_bytes": smem.get(n), "blocks_per_sm": b}
+            for n, b in zip(names, per_sm)}
 
 
 def turn(root: str, index: int) -> None:
@@ -99,52 +121,78 @@ def turn(root: str, index: int) -> None:
 
     dev = torch.device("cuda")
     rec = {"turn": index, "checkout": root, "card": smoke.gpu_name_and_power(),
-           "kernels": kernel_reports(smoke, _build)}
+           "kernels": {"dynamic": kernel_reports(smoke, _build),
+                       str(COUNTS): kernel_reports(smoke, _build, COUNTS)}}
     scene = demo_scene().build(dev)
+    assert tuple(scene.counts) == COUNTS
     cam = CameraConfig()
     focal, ap = cam.focal_length, cam.aperture_diameter
     table = pack_block_table(compute_atmosphere(AtmosphereConfig(size=256), dev))
     ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
+    pooled = "warp_iters" in inspect.signature(K._launch).parameters
 
-    # the render path's block
-    acc = init_accumulator(HEIGHT, WIDTH, dev)
+    rec["blocks"] = {}
+    for n_frames in BLOCKS:
+        out = rec["blocks"][str(n_frames)] = {}
+        reps = max(3, 90 // n_frames)
+        # the render path's block
+        acc = init_accumulator(HEIGHT, WIDTH, dev)
 
-    def block():
-        return progressive_frames(acc, scene, table, ip, iv, acc.frame, focal, ap, width=WIDTH,
-                                  height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=BLOCK)[1]
+        def block():
+            return progressive_frames(acc, scene, table, ip, iv, acc.frame, focal, ap,
+                                      width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1,
+                                      counts=COUNTS, n_frames=n_frames)[1]
 
-    block()
-    torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    rays = [block() for _ in range(3)]
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / 3
-    segments = sum(int(r) for r in rays)
-    rec["block"] = {"ms": ms, "mrays_per_s": segments / (ms * 3e-3) / 1e6,
-                    "segments": segments // 3, "resident_bytes": resident,
-                    "peak_bytes_above_resident": torch.cuda.max_memory_allocated(dev) - resident}
-    del acc
+        block()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rays = [block() for _ in range(reps)]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        segments = sum(int(r) for r in rays)
+        out["block"] = {"ms": ms, "mrays_per_s": segments / (ms * reps * 1e-3) / 1e6,
+                        "peak_bytes_above_resident":
+                            torch.cuda.max_memory_allocated(dev) - resident}
+        del acc
 
-    # its forward launch alone, and the slot mode's at the same inputs for
-    # the escapes: the environment changes no decision
-    kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=BLOCK)
-    escapes = smoke.escaped_samples(K.trace_progressive(scene, ip, iv, 0, focal, ap, **kw).miss_dir)
+        # its forward launch alone, from frame 0
+        kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, n_frames=n_frames,
+                  counts=COUNTS)
 
-    def launch():
-        return K.trace_progressive(scene, ip, iv, 0, focal, ap, env_table=table, **kw)
+        def launch():
+            return K.trace_progressive(scene, ip, iv, 0, focal, ap, env_table=table, **kw)
 
-    res = launch()
-    pixels, segments = WIDTH * HEIGHT, int(res.ray_count.sum())
-    bound_ms, bound_by = smoke.trace_bound(segments, pixels * BLOCK, pixels, 0, scene.counts,
-                                           env_bytes=table.numel() * 4, escapes=escapes)
-    rec["kernel"] = {"ms": smoke.cuda_ms(launch, 3), "segments": segments, "escapes": escapes,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
-    rec["lane_efficiency"] = {"block": G.lane_efficiency(res.ray_count)}
-    del res
+        def launch_dynamic():
+            return K.trace_progressive(scene, ip, iv, 0, focal, ap, env_table=table,
+                                       **dict(kw, counts=None))
+
+        res = launch()
+        segments = int(res.ray_count.sum())
+        out["kernel"] = {"ms": smoke.cuda_ms(launch, reps), "segments": segments,
+                         "dynamic_build_ms": smoke.cuda_ms(launch_dynamic, reps)}
+        out["lane_efficiency"] = {"per_lane": G.lane_efficiency(res.ray_count)}
+        if pooled:
+            iters = torch.empty(K.n_warps(WIDTH * HEIGHT), dtype=torch.int32, device=dev)
+            again = K._launch(scene, ip, iv, 0, focal, ap, n_valid=n_frames, n_rows=HEIGHT,
+                              row0=0, jitter="corner", rr=True, env_table=table,
+                              warp_iters=iters, **kw)
+            if not torch.equal(again.ray_count, res.ray_count):
+                raise AssertionError("two launches at the same inputs gave other ray counts")
+            out["lane_efficiency"]["pooled"] = segments / (32.0 * int(iters.sum()))
+        del res
+        if n_frames == BLOCKS[-1]:
+            slots = {k: v for k, v in kw.items() if k != "counts"}
+            escapes = smoke.escaped_samples(
+                K.trace_progressive(scene, ip, iv, 0, focal, ap, **slots).miss_dir)
+            pixels = WIDTH * HEIGHT
+            out["kernel"]["escapes"] = escapes
+            out["kernel"]["bound_ms"], out["kernel"]["bound_by"] = smoke.trace_bound(
+                segments, pixels * n_frames, pixels, 0, scene.counts,
+                env_bytes=table.numel() * 4, escapes=escapes)
 
     # the per-frame launches
     rec["frames"] = {}
@@ -161,7 +209,7 @@ def turn(root: str, index: int) -> None:
         rays = frame().ray_count
         rec["frames"][label] = {"ms": smoke.cuda_ms(frame, 20), "segments": int(rays.sum())}
         if w == WIDTH:
-            rec["lane_efficiency"]["frame"] = G.lane_efficiency(rays)
+            rec["frames"][label]["lane_efficiency"] = G.lane_efficiency(rays)
 
     print(json.dumps(rec), flush=True)
 

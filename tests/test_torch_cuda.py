@@ -237,7 +237,7 @@ def test_specialised_library_refuses_other_counts(device):
     table = pack_block_table(constant_environment((0.7, 0.8, 1.0), device=device))
     assert lib.tpt_trace_progressive(*[None] * 5, 48, 7, None, *band, *[None] * 5, None) == 1
     assert lib.tpt_trace_progressive_env(*[None] * 5, 48, 7, None, *band, table.data_ptr(), 1,
-                                         *[None] * 3, None) == 1
+                                         *[None] * 4, None) == 1
     assert lib.tpt_trace_onehot(*[None] * 4, 48, 7, None, *band[:4], 0, 1, 13, 0, 1,
                                 *[None] * 5, None) == 1
     assert lib.tpt_trace_grad_tape(*[None] * 4, 48, 7, None, 0, 48, 48, 48, 0, 1, 13, 0, 1, 0,

@@ -5,7 +5,9 @@ block and an inverse-rendering step record the span tree of the render and
 training paths, with parents and requests, and the profiler holds the same
 ``tpt::`` ranges on the same clock; the self-time arithmetic; a span on
 another thread nests under the open ``for_workers`` span; the trace
-counters give the traced segments and kernels.trace_grad.lane_efficiency.
+counters give the traced segments and kernels.trace_grad.lane_efficiency
+(the environment mode's too on the CPU), and take the pooled kernel's warp
+iterations where it wrote them.
 
 On a CUDA card (``cuda`` marker; ``python -m pytest
 tests/test_torch_tracing.py -q --noconftest -m cuda``), in a process of its
@@ -31,7 +33,8 @@ from tpt_torch.camera import camera_matrices
 from tpt_torch.config import CameraConfig
 from tpt_torch.env import constant_environment, pack_block_table
 from tpt_torch.kernels.render import kernel_counts, progressive_frames
-from tpt_torch.kernels.trace import trace
+from tpt_torch.kernels import trace as K
+from tpt_torch.kernels.trace import trace, trace_progressive, warp_segments
 from tpt_torch.kernels.trace_grad import lane_efficiency
 from tpt_torch.optim import clipped_adam, make_inverse_step, make_renderer
 from tpt_torch.progressive import init_accumulator
@@ -222,6 +225,40 @@ def test_trace_counters_give_segments_and_lane_efficiency(width, height, gather)
     c = profiling.counters()
     assert c[f"trace.{gather}.segments"] / (32 * c[f"trace.{gather}.warp_max_segments"]) == \
         pytest.approx(lane_efficiency(res[0].ray_count), rel=1e-12)
+
+
+@pytest.mark.parametrize("width,height,n_frames", [(16, 16, 2), (20, 12, 3)])
+def test_env_counters_on_the_cpu_keep_their_meaning(width, height, n_frames):
+    """On the CPU the environment mode runs the plain version, one pixel a
+    lane, so ``trace.env.*`` stay the ray counts' warp_segments; on the card
+    the pooled kernel's warp iterations take ``warp_max_segments``' place
+    (tests/test_torch_env_pool.py)."""
+    scene = demo_scene().build("cpu")
+    table = pack_block_table(constant_environment((0.7, 0.8, 1.0)))
+    inv_p, inv_v, _ = camera_matrices(CAM, width, height)
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = trace_progressive(scene, inv_p, inv_v, 3, CAM.focal_length,
+                                CAM.aperture_diameter, width=width, height=height,
+                                ray_depth=5, spp=1, n_frames=n_frames, env_table=table)
+    c = profiling.counters()
+    segments, warp_max = warp_segments(res.ray_count)
+    assert c == {"trace.env.segments": int(segments), "trace.env.warp_max_segments": int(warp_max)}
+    assert c["trace.env.segments"] / (32 * c["trace.env.warp_max_segments"]) == pytest.approx(
+        lane_efficiency(res.ray_count), rel=1e-12)
+
+
+def test_count_lanes_takes_the_kernels_warp_iterations(monkeypatch):
+    """Given the kernel's warp iterations, a launch's ``warp_max_segments``
+    is their sum; without them, the ray counts' warp_segments."""
+    monkeypatch.setattr(profiling, "_enabled", lambda: True)
+    rays = torch.arange(40, dtype=torch.int32) % 7
+    K._count_lanes("env", rays, torch.tensor([9, 4], dtype=torch.int32))
+    K._count_lanes("select", rays)
+    c = profiling.counters()
+    assert c["trace.env.segments"] == c["trace.select.segments"] == int(rays.sum())
+    assert c["trace.env.warp_max_segments"] == 13
+    assert c["trace.select.warp_max_segments"] == int(warp_segments(rays)[1]) == 6 + 6
+    assert [K.n_warps(n) for n in (1, 32, 33, 40, 64)] == [1, 1, 2, 2, 2]
 
 
 @pytest.fixture

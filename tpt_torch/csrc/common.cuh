@@ -134,11 +134,16 @@ inline bool counts_match(int ns, int nc) {
   return !kStaticCounts || (ns == kStaticSpheres && nc == kStaticCuboids);
 }
 
+// The rows a kernel stages in shared memory: the scene tables' for the
+// dynamic build, the constant counts' (at least one) for a specialised one.
+constexpr int kSmemSpheres = !kStaticCounts ? kMaxSpheres : kStaticSpheres > 0 ? kStaticSpheres : 1;
+constexpr int kSmemCuboids = !kStaticCounts ? kMaxCuboids : kStaticCuboids > 0 ? kStaticCuboids : 1;
+
 // ---- scene geometry in shared memory and the closest-hit fold ----
 struct GeomSmem {
-  float sph[kMaxSpheres * 4];             // center.xyz, radius
-  float cmin[kMaxCuboids * 3];
-  float cmax[kMaxCuboids * 3];
+  float sph[kSmemSpheres * 4];            // center.xyz, radius
+  float cmin[kSmemCuboids * 3];
+  float cmax[kSmemCuboids * 3];
 };
 
 // Copy the live rows of the scene's geometry into shared memory; every

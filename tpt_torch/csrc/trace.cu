@@ -41,18 +41,41 @@
 //     product only because it has no per-lane gather; a thread reads its
 //     winner's row directly, and gets the same values, so the two modes give
 //     the same bits.  In both, t is the fold's own;
-//   * per-lane refill: each thread runs its pixel's (frame, sample) items
-//     for f < n_valid, s < spp as a queue, in one loop of bounces.  In the
-//     iteration in which its path ends, a lane finishes the item (the sum,
-//     the slots) and starts the next: it reseeds from pixel_seed(px, py,
-//     frame0 + f) at s == 0, else chains the running seed, and draws the
-//     camera sample.  A warp so runs until its longest per-pixel total of
-//     segments, where nested sample and bounce loops ran each sample until
-//     the warp's longest path (lane efficiency 0.51 at 1080p, depth 13,
-//     Russian roulette).  tpt_torch.integrator.trace_progressive has the
-//     same schedule.  The random stream is fixed per pixel and a pixel's
-//     sums keep their order, so the results are the plain version's bits.
-//     Slots of frames >= n_valid are written zero;
+//   * per-lane refill (select and table modes): each thread runs its pixel's
+//     (frame, sample) items for f < n_valid, s < spp as a queue, in one loop
+//     of bounces.  In the iteration in which its path ends, a lane finishes
+//     the item (the sum, the slots) and starts the next: it reseeds from
+//     pixel_seed(px, py, frame0 + f) at s == 0, else chains the running
+//     seed, and draws the camera sample.  A warp so runs until its longest
+//     per-pixel total of segments, where nested sample and bounce loops ran
+//     each sample until the warp's longest path (lane efficiency 0.51 at
+//     1080p, depth 13, Russian roulette).  tpt_torch.integrator.
+//     trace_progressive has the same schedule.  Slots of frames >= n_valid
+//     are written zero.  The render, training and viewer paths launch these
+//     modes with one frame of one sample, one item a lane, where there is
+//     nothing to balance (and the select kernel's 72 registers leave no
+//     room for a pool);
+//   * the warp-pooled queue (kEnv, trace_pooled): a warp's 32 pixels own
+//     their n_valid items (pixel, frame), item k being frame k / live of
+//     pixel k % live (live: the warp's pixels inside the band).  A lane
+//     whose item ends, or that has none, claims the next unclaimed item of
+//     its warp (a ballot and a popcount, no atomics), so lanes that finish
+//     early take other pixels' frames and the warp no longer waits on its
+//     longest pixel.  A frame's spp samples stay in order on the lane that
+//     claimed it, reseeding at the first and chaining the seed after.  Each
+//     finished sample writes its radiance and segments into the warp's
+//     ring in shared memory, slot (sample mod kRing, pixel), and each
+//     pixel's own lane folds its slots in sample order from zero, acc =
+//     acc + rad, so rad_sum, ray_count and seed are the per-lane loop's
+//     bits.  A sample never overwrites an unfolded slot: when a pixel has
+//     more samples than the ring has rows, a sample whose slot still holds
+//     an earlier one waits, holding its result, until the pixel's lane
+//     folds it; else every sample has its own slot and the fold runs once
+//     at the end.  A lane with nothing left stays in the loop, idle, until
+//     its warp's items are done, so the warp-collective calls see every
+//     lane.  At one item a pixel this is the per-lane schedule;
+//   * in both, the random stream is fixed per pixel and a pixel's sums keep
+//     their order, so the results are the plain version's bits;
 //   * the environment lookup (kEnv) repeats
 //     tpt_torch.env.sample_environment_blocked's arithmetic in its order:
 //     GL face selection, an IEEE 1 / max(ma, 1e-30), the bilinear taps and
@@ -65,8 +88,9 @@
 //     order, so both tables give the plain version's bits.
 //
 // What bounds it on this card: per-thread FP32 transport maths (a
-// closest-hit scan over every primitive per bounce) and the lanes of a warp
-// left idle while others finish their pixel's longer paths.  Device-memory
+// closest-hit scan over every primitive per bounce) and, in the per-lane
+// loop, the lanes of a warp left idle while others finish their pixel's
+// longer paths (in the pooled queue, only the warp's last items).  Device-memory
 // traffic is small except, without kEnv, the 2 * F * spp * 3 floats per
 // pixel of miss slots.
 //
@@ -78,8 +102,7 @@
 // then refuse other counts.  tpt_torch/kernels/_build.py keys each such
 // build by its counts and unroll beside the one dynamic build.
 //
-// Left for later: a warp-pooled queue of (pixel, frame) items and FMA
-// contraction.
+// Left for later: FMA contraction.
 //
 // Parity policy: see common.cuh.  Every float operation repeats the plain
 // PyTorch version's, in the same order, with no FMA contraction.
@@ -102,8 +125,8 @@ struct SceneSmem;
 template <>
 struct SceneSmem<false> {
   GeomSmem g;
-  float smat[kMaxSpheres * kMatLanes];
-  float cmat[kMaxCuboids * kMatLanes];
+  float smat[kSmemSpheres * kMatLanes];
+  float cmat[kSmemCuboids * kMatLanes];
 };
 
 template <>
@@ -366,10 +389,173 @@ __device__ __forceinline__ void bounce(const SceneSmem<kTable>& sc, int ns, int 
   p.alive = survive;
 }
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kWarps = kBlock / 32;
+// Rows of the pooled queue's ring (a power of two).  A build for given
+// counts stages only their rows, which leaves room for a whole 8-frame
+// block's samples at 8 blocks/SM (64 registers, 23,984 shared bytes a block
+// for (48, 7)); the dynamic build stages kMax-sized rows and takes 2 rows,
+// at 7 blocks/SM (31,232 shared bytes).
+constexpr int kRing = kStaticCounts ? 8 : 2;
+static_assert((kRing & (kRing - 1)) == 0, "kRing is a power of two");
+
+// The environment mode's schedule, a warp-pooled queue (design notes at the
+// top of the file).  Each warp owns its 32 consecutive pixels' items, item k
+// being frame k / live of pixel k % live (live: the warp's pixels inside the
+// band); lanes claim items in that order as they fall idle and run a frame's
+// spp samples in order, chaining the seed.  A sample's result goes to the
+// ring slot (sample mod kRing, pixel); each pixel's own lane folds its slots
+// in sample order.  warp_iters, when not null, gets each warp's loop
+// iterations.
+template <bool kBf16>
+__device__ __forceinline__ void trace_pooled(const SceneSmem<false>& sc, int ns, int nc, bool rr,
+                                             const EnvTable& env, const Camera& cam, int width,
+                                             int height, int n_rows, int row0, int frame0,
+                                             int n_valid, int spp, int ray_depth,
+                                             bool jitter_center, float* __restrict__ rad_sum,
+                                             int32_t* __restrict__ ray_count,
+                                             int64_t* __restrict__ seed_out,
+                                             int32_t* __restrict__ warp_iters) {
+  // a slot: the sample's radiance and, as int bits in w, its segments (-1: empty)
+  __shared__ float4 rings[kWarps][kRing][32];
+  // each pixel's fold so far while the loop runs: its sum, segments and samples
+  __shared__ float4 sums[kWarps][32];
+  __shared__ int folds[kWarps][32];
+  // each pixel's (px, py), so a claim costs no 64-bit division
+  __shared__ int2 pixels[kWarps][32];
+  const int64_t npix = static_cast<int64_t>(n_rows) * width;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBlock + (threadIdx.x & ~31);
+  if (base >= npix) return;  // the whole warp lies past the band
+  const int live = npix - base < 32 ? static_cast<int>(npix - base) : 32;
+  float4(&ring)[kRing][32] = rings[warp];
+#pragma unroll
+  for (int r = 0; r < kRing; ++r) ring[r][lane].w = __int_as_float(-1);
+  sums[warp][lane] = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0));
+  folds[warp][lane] = 0;
+  {
+    const int64_t i = base + lane;
+    pixels[warp][lane] = make_int2(static_cast<int>(i % width),
+                                   min(static_cast<int>(i / width) + row0, height - 1));
+  }
+  __syncwarp();
+
+  const int per_pixel = n_valid * spp;  // a pixel's samples, in the order its sum takes them
+  const int total = live * n_valid;     // the warp's items
+  // Every sample has a slot of its own when the ring holds a pixel's every
+  // sample: the fold then waits for the loop's end.  Else slots are reused,
+  // and a sample whose slot still holds an unfolded sample waits, holding
+  // its result, until its pixel's lane folds that one.
+  const bool streaming = per_pixel > kRing;
+  const unsigned below = (1u << lane) - 1u;
+  const float fw = static_cast<float>(width);
+  const float fh = static_cast<float>(height);
+
+  // Fold the lane's own pixel's samples that have arrived, in sample order,
+  // into (acc, rays) from sample `folded` on.
+  auto fold = [&](V3& acc, int32_t& rays, int& folded) {
+    while (folded < per_pixel) {
+      float4& slot = ring[folded & (kRing - 1)][lane];
+      const int seg = __float_as_int(slot.w);
+      if (seg < 0) break;
+      acc = acc + make(slot.x, slot.y, slot.z);
+      rays += seg;
+      slot.w = __int_as_float(-1);
+      ++folded;
+    }
+  };
+
+  int next = 0;        // items claimed so far, the same in every lane
+  int32_t iters = 0;
+  bool busy = false;   // the lane holds an item
+  int q = 0, j = 0, j_end = 0, b = 0;  // its pixel, its sample and the item's end, bounces
+  uint32_t seed = 0;
+  Path p;
+  // Start sample j of the item; a frame's first sample (f >= 0) reseeds
+  // from the pixel hash, later ones chain the running seed.
+  auto start = [&](int f) {
+    const int2 xy = pixels[warp][q];
+    if (f >= 0) seed = pixel_seed(xy.x, xy.y, static_cast<uint32_t>(frame0 + f));
+    const Draws w = sample_draws(seed);
+    primary_ray(cam, static_cast<float>(xy.x), static_cast<float>(xy.y), fw, fh, jitter_center,
+                w, p.o, p.d);
+    p.thr = make(1.0f, 1.0f, 1.0f);
+    p.rad = make(0.0f, 0.0f, 0.0f);
+    p.seed = seed;
+    p.alive = true;
+    b = 0;
+  };
+  while (true) {
+    // idle lanes claim the next items, in lane order
+    const unsigned idle = __ballot_sync(kFullWarp, !busy);
+    if (idle != 0 && next < total) {
+      const int k = next + __popc(idle & below);
+      if (!busy && k < total) {
+        q = live == 32 ? k & 31 : k % live;
+        const int f = live == 32 ? k >> 5 : k / live;
+        j = f * spp;
+        j_end = j + spp;
+        start(f);
+        busy = true;
+      }
+      next += __popc(idle);
+    }
+    if (__ballot_sync(kFullWarp, busy) == 0) break;
+    ++iters;
+    if (busy && p.alive && b < ray_depth) {
+      bounce<false, true, kBf16>(sc, ns, nc, rr, env, p);
+      ++b;
+    }
+    if (busy && (!p.alive || b >= ray_depth) && (!streaming || j < folds[warp][q] + kRing)) {
+      // the sample ends: its slot, then the item's next sample or its end
+      ring[j & (kRing - 1)][q] = make_float4(p.rad.x, p.rad.y, p.rad.z, __int_as_float(b));
+      seed = p.seed;
+      if (++j < j_end) {
+        start(-1);
+      } else {
+        busy = false;
+        if (j == per_pixel) seed_out[base + q] = static_cast<int64_t>(seed);
+      }
+    }
+    if (streaming) {
+      __syncwarp();
+      if (lane < live) {
+        int folded = folds[warp][lane];
+        if (folded < per_pixel && __float_as_int(ring[folded & (kRing - 1)][lane].w) >= 0) {
+          const float4 sum = sums[warp][lane];
+          V3 acc = make(sum.x, sum.y, sum.z);
+          int32_t rays = __float_as_int(sum.w);
+          fold(acc, rays, folded);
+          sums[warp][lane] = make_float4(acc.x, acc.y, acc.z, __int_as_float(rays));
+          folds[warp][lane] = folded;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+  if (lane < live) {
+    const float4 sum = sums[warp][lane];
+    V3 acc = make(sum.x, sum.y, sum.z);
+    int32_t rays = __float_as_int(sum.w);
+    int folded = folds[warp][lane];
+    fold(acc, rays, folded);
+    const int64_t i = base + lane;
+    rad_sum[i] = acc.x;
+    rad_sum[npix + i] = acc.y;
+    rad_sum[2 * npix + i] = acc.z;
+    ray_count[i] = rays;
+    if (per_pixel == 0) seed_out[i] = 0;
+  }
+  if (lane == 0 && warp_iters != nullptr) warp_iters[base >> 5] = iters;
+}
+
 // kTable: read the winners from `table` (the attribute table, f32[128, 24]);
 // else from sphere_material / cuboid_material.  The other pointers of the
-// pair are not read.  kEnv: `env` is read and miss_dir / miss_thr are not
-// written; else the reverse.  kBf16: `env` is the bf16 table.
+// pair are not read.  kEnv: `env` is read, miss_dir / miss_thr are not
+// written and the pooled queue runs (trace_pooled); else the reverse, and
+// the per-lane refill loop runs.  kBf16: `env` is the bf16 table.
 template <bool kTable, bool kEnv, bool kBf16>
 __global__ void __launch_bounds__(kBlock)
 trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
@@ -383,68 +569,72 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
                          int n_valid, int spp, int ray_depth, int jitter_center,
                          int rr, float* __restrict__ rad_sum,
                          float* __restrict__ miss_dir, float* __restrict__ miss_thr,
-                         int32_t* __restrict__ ray_count, int64_t* __restrict__ seed_out) {
+                         int32_t* __restrict__ ray_count, int64_t* __restrict__ seed_out,
+                         int32_t* __restrict__ warp_iters) {
   __shared__ SceneSmem<kTable> sc;
   stage_geometry(sc.g, sphere_pos_radius, cuboid_min, cuboid_max, ns, nc);
   stage_attrs(sc, sphere_material, cuboid_material, table, ns, nc);
   __syncthreads();
 
-  const int64_t npix = static_cast<int64_t>(n_rows) * width;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= npix) return;
-  const int px = static_cast<int>(i % width);
-  const int py = min(static_cast<int>(i / width) + row0, height - 1);
-  const float fpx = static_cast<float>(px);
-  const float fpy = static_cast<float>(py);
-  const float fw = static_cast<float>(width);
-  const float fh = static_cast<float>(height);
+  if constexpr (kEnv) {
+    static_assert(!kTable, "the environment mode reads the scene's rows");
+    trace_pooled<kBf16>(sc, ns, nc, rr != 0, env, cam, width, height, n_rows, row0, frame0,
+                        n_valid, spp, ray_depth, jitter_center != 0, rad_sum, ray_count,
+                        seed_out, warp_iters);
+  } else {
+    const int64_t npix = static_cast<int64_t>(n_rows) * width;
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= npix) return;
+    const int px = static_cast<int>(i % width);
+    const int py = min(static_cast<int>(i / width) + row0, height - 1);
+    const float fpx = static_cast<float>(px);
+    const float fpy = static_cast<float>(py);
+    const float fw = static_cast<float>(width);
+    const float fh = static_cast<float>(height);
 
-  V3 acc = make(0.0f, 0.0f, 0.0f);
-  int32_t rays = 0;
-  uint32_t seed = 0;
-  int f = 0, s = 0, b = 0;  // the lane's item, sample s of frame f, and its bounces so far
-  Path p;
-  // Start item (f, s): a frame's first sample reseeds from the pixel hash,
-  // later samples chain the running seed.
-  auto start = [&]() {
-    if (s == 0) seed = pixel_seed(px, py, static_cast<uint32_t>(frame0 + f));
-    const Draws w = sample_draws(seed);
-    primary_ray(cam, fpx, fpy, fw, fh, jitter_center != 0, w, p.o, p.d);
-    p.thr = make(1.0f, 1.0f, 1.0f);
-    p.rad = make(0.0f, 0.0f, 0.0f);
-    p.miss_d = make(0.0f, 0.0f, 0.0f);
-    p.miss_t = make(0.0f, 0.0f, 0.0f);
-    p.seed = seed;
-    p.alive = true;
-    b = 0;
-  };
-  bool busy = n_valid > 0;
-  if (busy) start();
-  while (busy) {
-    if (b < ray_depth) {
-      ++rays;
-      bounce<kTable, kEnv, kBf16>(sc, ns, nc, rr != 0, env, p);
-      ++b;
-    }
-    if (!p.alive || b >= ray_depth) {  // the item ends: its sums, its slots, the next item
-      seed = p.seed;
-      acc = acc + p.rad;
-      if constexpr (!kEnv) {
+    V3 acc = make(0.0f, 0.0f, 0.0f);
+    int32_t rays = 0;
+    uint32_t seed = 0;
+    int f = 0, s = 0, b = 0;  // the lane's item, sample s of frame f, and its bounces so far
+    Path p;
+    // Start item (f, s): a frame's first sample reseeds from the pixel hash,
+    // later samples chain the running seed.
+    auto start = [&]() {
+      if (s == 0) seed = pixel_seed(px, py, static_cast<uint32_t>(frame0 + f));
+      const Draws w = sample_draws(seed);
+      primary_ray(cam, fpx, fpy, fw, fh, jitter_center != 0, w, p.o, p.d);
+      p.thr = make(1.0f, 1.0f, 1.0f);
+      p.rad = make(0.0f, 0.0f, 0.0f);
+      p.miss_d = make(0.0f, 0.0f, 0.0f);
+      p.miss_t = make(0.0f, 0.0f, 0.0f);
+      p.seed = seed;
+      p.alive = true;
+      b = 0;
+    };
+    bool busy = n_valid > 0;
+    if (busy) start();
+    while (busy) {
+      if (b < ray_depth) {
+        ++rays;
+        bounce<kTable, false, false>(sc, ns, nc, rr != 0, env, p);
+        ++b;
+      }
+      if (!p.alive || b >= ray_depth) {  // the item ends: its sums, its slots, the next item
+        seed = p.seed;
+        acc = acc + p.rad;
         const int64_t slot = static_cast<int64_t>(f) * spp + s;
         float* md = miss_dir + slot * 3 * npix + i;
         float* mt = miss_thr + slot * 3 * npix + i;
         md[0] = p.miss_d.x; md[npix] = p.miss_d.y; md[2 * npix] = p.miss_d.z;
         mt[0] = p.miss_t.x; mt[npix] = p.miss_t.y; mt[2 * npix] = p.miss_t.z;
+        if (++s == spp) {
+          s = 0;
+          ++f;
+        }
+        busy = f < n_valid;
+        if (busy) start();
       }
-      if (++s == spp) {
-        s = 0;
-        ++f;
-      }
-      busy = f < n_valid;
-      if (busy) start();
     }
-  }
-  if constexpr (!kEnv) {
     for (int64_t slot = static_cast<int64_t>(n_valid) * spp;
          slot < static_cast<int64_t>(n_frames) * spp; ++slot) {
       for (int c = 0; c < 3; ++c) {
@@ -452,12 +642,12 @@ trace_progressive_kernel(const float* __restrict__ sphere_pos_radius,
         miss_thr[(slot * 3 + c) * npix + i] = 0.0f;
       }
     }
+    rad_sum[i] = acc.x;
+    rad_sum[npix + i] = acc.y;
+    rad_sum[2 * npix + i] = acc.z;
+    ray_count[i] = rays;
+    seed_out[i] = static_cast<int64_t>(seed);
   }
-  rad_sum[i] = acc.x;
-  rad_sum[npix + i] = acc.y;
-  rad_sum[2 * npix + i] = acc.z;
-  ray_count[i] = rays;
-  seed_out[i] = static_cast<int64_t>(seed);
 }
 
 // The host side of the entry points: the camera from host memory, the
@@ -469,7 +659,7 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
            const float* camera_host, int width, int height, int n_rows, int row0, int frame0,
            int n_frames, int n_valid, int spp, int ray_depth, int jitter_center,
            int russian_roulette, float* rad_sum, float* miss_dir, float* miss_thr,
-           int32_t* ray_count, int64_t* seed, void* stream) {
+           int32_t* ray_count, int64_t* seed, int32_t* warp_iters, void* stream) {
   if (num_spheres < 0 || num_spheres > kMaxSpheres || num_cuboids < 0 ||
       num_cuboids > kMaxCuboids || (kTable && num_spheres + num_cuboids > kAttrRows) ||
       !counts_match(num_spheres, num_cuboids) ||
@@ -493,7 +683,7 @@ int launch(const float* sphere_pos_radius, const float* sphere_material,
           sphere_pos_radius, sphere_material, cuboid_min, cuboid_max, cuboid_material, table,
           env, num_spheres, num_cuboids, cam, width, height, n_rows, row0, frame0, n_frames,
           n_valid, spp, ray_depth, jitter_center, russian_roulette, rad_sum, miss_dir, miss_thr,
-          ray_count, seed);
+          ray_count, seed, warp_iters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,13 +713,15 @@ extern "C" int tpt_trace_progressive(
                                      num_cuboids, camera_host, width, height, n_rows, row0,
                                      frame0, n_frames, n_valid, spp, ray_depth, jitter_center,
                                      russian_roulette, rad_sum, miss_dir, miss_thr, ray_count,
-                                     seed, stream);
+                                     seed, nullptr, stream);
 }
 
 // The select gather with the environment fetched at escape: n_frames
-// progressive frames, rad_sum holding the environment term, no miss slots.
-// env_table: the device buffer f32[6 (env_size + 2)^2, 12] of
-// tpt_torch.env.pack_block_table, on a 16-byte boundary.
+// progressive frames, rad_sum holding the environment term, no miss slots,
+// scheduled by the pooled queue.  env_table: the device buffer
+// f32[6 (env_size + 2)^2, 12] of tpt_torch.env.pack_block_table, on a
+// 16-byte boundary.  warp_iters: null, or the device buffer
+// i32[ceil(n_rows*width / 32)] that gets each warp's loop iterations.
 extern "C" int tpt_trace_progressive_env(
     const float* sphere_pos_radius, const float* sphere_material,
     const float* cuboid_min, const float* cuboid_max, const float* cuboid_material,
@@ -537,13 +729,13 @@ extern "C" int tpt_trace_progressive_env(
     int height, int n_rows, int row0, int frame0, int n_frames, int n_valid,
     int spp, int ray_depth, int jitter_center, int russian_roulette,
     const float* env_table, int env_size, float* rad_sum, int32_t* ray_count,
-    int64_t* seed, void* stream) {
+    int64_t* seed, int32_t* warp_iters, void* stream) {
   return launch<false, true, false>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
                                     cuboid_material, nullptr, EnvTable{env_table, env_size},
                                     num_spheres, num_cuboids, camera_host, width, height, n_rows,
                                     row0, frame0, n_frames, n_valid, spp, ray_depth,
                                     jitter_center, russian_roulette, rad_sum, nullptr, nullptr,
-                                    ray_count, seed, stream);
+                                    ray_count, seed, warp_iters, stream);
 }
 
 // The same with the bf16 table: env_table is the device buffer
@@ -556,13 +748,13 @@ extern "C" int tpt_trace_progressive_env_bf16(
     int height, int n_rows, int row0, int frame0, int n_frames, int n_valid,
     int spp, int ray_depth, int jitter_center, int russian_roulette,
     const float* env_table, int env_size, float* rad_sum, int32_t* ray_count,
-    int64_t* seed, void* stream) {
+    int64_t* seed, int32_t* warp_iters, void* stream) {
   return launch<false, true, true>(sphere_pos_radius, sphere_material, cuboid_min, cuboid_max,
                                    cuboid_material, nullptr, EnvTable{env_table, env_size},
                                    num_spheres, num_cuboids, camera_host, width, height, n_rows,
                                    row0, frame0, n_frames, n_valid, spp, ray_depth, jitter_center,
                                    russian_roulette, rad_sum, nullptr, nullptr, ray_count, seed,
-                                   stream);
+                                   warp_iters, stream);
 }
 
 // The one-hot gather's table mode, one frame (pallas_trace, gather="onehot"):
@@ -578,7 +770,7 @@ extern "C" int tpt_trace_onehot(
                                     table, EnvTable{nullptr, 0}, num_spheres, num_cuboids,
                                     camera_host, width, height, n_rows, row0, frame, 1, 1, spp,
                                     ray_depth, jitter_center, russian_roulette, radiance, miss_dir,
-                                    miss_thr, ray_count, seed, stream);
+                                    miss_thr, ray_count, seed, nullptr, stream);
 }
 
 // out: the blocks per SM that cudaOccupancyMaxActiveBlocksPerMultiprocessor

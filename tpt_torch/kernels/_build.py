@@ -76,12 +76,13 @@ ENTRY_POINTS = {
     # 5 output pointers, the stream
     "tpt_trace_progressive": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11 + [_P] * 5 + [_P]),
     # 5 scene pointers, 2 counts, the host camera pointer, 11 ints, the
-    # environment table and its face size, 3 output pointers, the stream
+    # environment table and its face size, 3 output pointers, the warp
+    # iterations' pointer (may be null), the stream
     "tpt_trace_progressive_env": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11 + [_P, _I]
-                                  + [_P] * 3 + [_P]),
+                                  + [_P] * 4 + [_P]),
     # the same, the environment table in its bf16 form
     "tpt_trace_progressive_env_bf16": ("trace.cu", [_P] * 5 + [_I] * 2 + [_P] + [_I] * 11
-                                       + [_P, _I] + [_P] * 3 + [_P]),
+                                       + [_P, _I] + [_P] * 4 + [_P]),
     # 3 geometry pointers, the table, 2 counts, the host camera pointer,
     # 9 ints, 5 output pointers, the stream
     "tpt_trace_onehot": ("trace.cu", [_P] * 4 + [_I] * 2 + [_P] + [_I] * 9 + [_P] * 5 + [_P]),

@@ -51,10 +51,16 @@ it also counts, by path (``env`` for environment-mode launches,
 ``progressive`` for the other refill launches, ``select`` or ``onehot`` for
 one frame), the traced segments ``trace.<path>.segments`` and
 ``trace.<path>.warp_max_segments``, the sum over each warp (32 consecutive
-pixels of the band, one thread a pixel in row-major order, the last warp
-padded with zeros) of its longest path: lane efficiency is ``segments /
-(32 warp_max_segments)``, as tpt_torch.kernels.trace_grad.lane_efficiency
-computes it from the same :func:`warp_segments`, kept on the device.
+pixels of the band, the last warp padded) of the loop iterations it ran:
+lane efficiency is ``segments / (32 warp_max_segments)``, kept on the
+device.  The select and table modes run one pixel a lane, so a warp's
+iterations are its longest path, :func:`warp_segments` of the ray counts,
+as tpt_torch.kernels.trace_grad.lane_efficiency computes it.  The
+environment mode on the card pools a warp's (pixel, frame) items among its
+lanes (csrc/trace.cu), and its launches under the profiler return each
+warp's iterations, which give its ``warp_max_segments`` there; on the CPU
+the plain version's one-pixel-a-lane loop gives :func:`warp_segments`.
+At one frame of one sample the two are the same.
 """
 
 from __future__ import annotations
@@ -206,6 +212,11 @@ def _camera_vector(inv_proj, inv_view, focal_length, aperture_diameter) -> torch
     ]).contiguous()
 
 
+def n_warps(n_pixels: int) -> int:
+    """The warps of a launch over ``n_pixels`` pixels, one thread a pixel."""
+    return -(-int(n_pixels) // 32)
+
+
 def warp_segments(ray_count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the traced segments, the sum over each warp, 32 consecutive pixels
     with the last one padded with zeros, of its longest path) of integer
@@ -216,10 +227,12 @@ def warp_segments(ray_count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return n.sum(dtype=torch.int64), n.view(-1, 32).amax(dim=1).sum(dtype=torch.int64)
 
 
-def _count_lanes(path: str, ray_count: torch.Tensor):
-    """Add a launch's :func:`warp_segments` to the counters of ``path``
-    (module docstring)."""
-    segments, warp_max = warp_segments(ray_count)
+def _count_lanes(path: str, ray_count: torch.Tensor, warp_iters: torch.Tensor | None = None):
+    """Add a launch's segments and warp iterations to the counters of
+    ``path`` (module docstring): the kernel's ``warp_iters`` where it wrote
+    them, else :func:`warp_segments`."""
+    segments, warp_max = warp_segments(ray_count) if warp_iters is None else (
+        ray_count.sum(dtype=torch.int64), warp_iters.sum(dtype=torch.int64))
     profiling.count(f"trace.{path}.segments", segments)
     profiling.count(f"trace.{path}.warp_max_segments", warp_max)
 
@@ -243,9 +256,12 @@ def forward_library(counts, env_mode: bool, n_frames: int):
 
 def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, *,
             width, height, ray_depth, spp, n_frames, n_valid, counts, n_rows, row0,
-            jitter, rr, gather="select", env_table=None, lib=None) -> ProgressiveTraceResult:
+            jitter, rr, gather="select", env_table=None, lib=None,
+            warp_iters=None) -> ProgressiveTraceResult:
     """One launch of the kernel from ``lib`` (a _build.load_library set;
-    by default :func:`forward_library`'s)."""
+    by default :func:`forward_library`'s).  ``warp_iters``: with
+    ``env_table``, None or a contiguous i32[ceil(n_rows width / 32)] on the
+    device, which gets each warp's loop iterations."""
     global LAUNCHES, ONEHOT_LAUNCHES, ENV_LAUNCHES, ENV_BF16_LAUNCHES
     device = scene.device
     if device.type != "cuda":
@@ -268,6 +284,13 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
         table = build_attr_table(scene, (ns, nc)).detach().contiguous()
     if env_table is not None:
         env_size, env_bf16 = _check_env_table(env_table, device)
+    if warp_iters is not None and (
+            env_table is None or warp_iters.device != device or warp_iters.dtype != torch.int32
+            or tuple(warp_iters.shape) != (n_warps(n_rows * width),)
+            or not warp_iters.is_contiguous()):
+        raise ValueError(f"warp_iters, which only the environment mode writes, must be a "
+                         f"contiguous i32[{n_warps(n_rows * width)}] on {device}, got "
+                         f"{warp_iters.dtype}{list(warp_iters.shape)} on {warp_iters.device}")
 
     f32 = dict(dtype=torch.float32, device=device)
     rad_sum = torch.empty((3, n_rows, width), **f32)
@@ -292,7 +315,8 @@ def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, 
             entry = "tpt_trace_progressive_env" + ("_bf16" if env_bf16 else "")
             err = getattr(lib, entry)(
                 *scene_ptrs, ns, nc, cam.data_ptr(), *band, env_table.data_ptr(), env_size,
-                rad_sum.data_ptr(), ray_count.data_ptr(), seed.data_ptr(), stream)
+                rad_sum.data_ptr(), ray_count.data_ptr(), seed.data_ptr(),
+                None if warp_iters is None else warp_iters.data_ptr(), stream)
         elif gather == "onehot":
             entry = "tpt_trace_onehot"
             err = lib.tpt_trace_onehot(
@@ -342,6 +366,7 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
     kwargs = dict(width=width, height=height, ray_depth=ray_depth, spp=spp,
                   n_frames=n_frames, counts=counts, row0=row0, jitter=jitter, rr=rr,
                   env_table=env_table)
+    warp_iters = None
     with profiling.span("trace.launch"):
         if scene.device.type == "cpu":
             res = trace_progressive_plain(scene, inv_proj, inv_view, frame0, focal_length,
@@ -350,11 +375,15 @@ def trace_progressive(scene, inv_proj, inv_view, frame0, focal_length, aperture_
         else:
             n_valid = n_frames if n_valid is None else int(n_valid)
             _check_args(jitter, spp, ray_depth, n_frames, n_valid)
+            n_rows = height if n_rows is None else n_rows
+            if env_table is not None and profiling.enabled():
+                warp_iters = torch.empty(n_warps(n_rows * width), dtype=torch.int32,
+                                         device=scene.device)
             res = _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter,
-                          n_valid=n_valid, n_rows=height if n_rows is None else n_rows,
-                          **kwargs)
+                          n_valid=n_valid, n_rows=n_rows, warp_iters=warp_iters, **kwargs)
     if profiling.enabled():
-        _count_lanes("env" if env_table is not None else "progressive", res.ray_count)
+        _count_lanes("env" if env_table is not None else "progressive", res.ray_count,
+                     warp_iters)
     return res
 
 
