@@ -339,7 +339,7 @@ def test_sync_spans_are_the_card_syncs_and_start_on_the_profilers_clock(cuda):
                          cwd=here, env=env, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["syncs"] == got["warnings"] and min(got["warnings"]) >= 1
+    assert got["syncs"] == got["warnings"] == [1, 0]   # the fold's denominator; none a step
     assert got["tree"]["trace_grad.launch"] == ["optim.backward"]
     assert got["off_main_thread"] == ["trace_grad.launch"]   # autograd's engine thread
     assert got["events"] == got["records"]

@@ -426,7 +426,8 @@ class _TraceDiff(torch.autograd.Function):
 def trace_diff(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter,
                row0: int = 0, *, width: int, height: int, ray_depth: int, spp: int,
                counts: Tuple[int, int], n_rows: int | None = None,
-               jitter: str = "corner", rr: bool = True) -> TraceResult:
+               jitter: str = "corner", rr: bool = True,
+               cam20: torch.Tensor | None = None) -> TraceResult:
     """Differentiable trace of one frame (counterpart of tpt's trace_diff):
     the kernel forward, the backward kernel in reverse mode.
 
@@ -436,11 +437,21 @@ def trace_diff(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter
     grad); ``ray_count`` and ``seed`` carry no gradient.  Compose with
     tpt_torch.integrator.apply_environment_blocked for a differentiable
     frame (the environment's cotangent comes from autograd through the
-    gather).  ``row0``/``n_rows`` select a pixel-row band."""
+    gather).  ``row0``/``n_rows`` select a pixel-row band.
+
+    ``cam20``: None, or the camera arguments' :func:`camera_vector` on the
+    device, built once for a camera that is not differentiated: the call
+    then does not build it (from host scalars, copies that wait for the
+    device) and takes the camera as a constant, so ValueError if a camera
+    argument requires grad."""
     _check_args(counts, jitter, spp, ray_depth)
     table = build_attr_table(scene, counts)
-    cam20 = camera_vector(inv_proj, inv_view, focal_length, aperture_diameter,
-                          device=table.device)
+    if cam20 is None:
+        cam20 = camera_vector(inv_proj, inv_view, focal_length, aperture_diameter,
+                              device=table.device)
+    elif any(isinstance(x, torch.Tensor) and x.requires_grad
+             for x in (inv_proj, inv_view, focal_length, aperture_diameter)):
+        raise ValueError("a prebuilt cam20 is a constant: no camera argument may require grad")
     detach = lambda x: x.detach() if isinstance(x, torch.Tensor) else x
     fwd_scene = dataclasses.replace(scene, **{f.name: detach(getattr(scene, f.name))
                                               for f in dataclasses.fields(scene)})

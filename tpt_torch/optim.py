@@ -32,7 +32,7 @@ import torch
 from .camera import camera_matrices
 from .config import CameraConfig
 from .integrator import apply_environment_blocked
-from .kernels.trace_grad import trace_diff
+from .kernels.trace_grad import camera_vector, trace_diff
 from .utils.profiling import span
 from .vecmath import div_scalar
 
@@ -125,21 +125,28 @@ def make_renderer(scene, views: Sequence[CameraConfig], *, width: int, height: i
     f32[H, W, 3]`` through trace_diff (the trace kernel forward, the
     backward kernel in reverse mode).  Several views make parameters
     identifiable that one view does not observe.  Each call is the span
-    ``optim.render`` (tpt_torch.utils.profiling)."""
-    dev = scene.device
+    ``optim.render`` (tpt_torch.utils.profiling).
+
+    The views' cameras are constants here, never leaves: their matrices
+    stay on the host, where the forward kernel reads its camera, and each
+    view's backward camera (camera_vector) is copied to the device once,
+    here, and handed to trace_diff.  With the divisors filled on the
+    device (div_scalar), a render makes no host-device synchronisation."""
     mats = []
     for c in views:
-        inv_p, inv_v, _ = camera_matrices(c, width, height)
-        mats.append((inv_p.to(dev), inv_v.to(dev), c.focal_length, c.aperture_diameter))
+        inv_p, inv_v, _ = camera_matrices(c, width, height)   # on the host
+        mats.append((inv_p, inv_v, c.focal_length, c.aperture_diameter,
+                     camera_vector(inv_p, inv_v, c.focal_length, c.aperture_diameter,
+                                   device=scene.device)))
 
     def render(sphere_mat, cuboid_mat, frame, view: int):
         with span("optim.render"):
-            inv_p, inv_v, focal, aperture = mats[view]
+            inv_p, inv_v, focal, aperture, cam20 = mats[view]
             s = dataclasses.replace(scene, sphere_material=sphere_mat,
                                     cuboid_material=cuboid_mat)
             res = trace_diff(s, inv_p, inv_v, int(frame), focal, aperture, 0, width=width,
                              height=height, ray_depth=ray_depth, spp=spp, counts=counts,
-                             jitter=jitter, rr=russian_roulette)
+                             jitter=jitter, rr=russian_roulette, cam20=cam20)
             return torch.movedim(apply_environment_blocked(res, env_table, spp), 0, -1)
 
     return render

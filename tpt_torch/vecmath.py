@@ -23,15 +23,13 @@ from __future__ import annotations
 
 import torch
 
-from .utils.profiling import sync
-
 
 def div_scalar(a: torch.Tensor, s) -> torch.Tensor:
-    """``a / s`` as a correctly rounded f32 division on every device (on a
-    CUDA device the divisor's copy from the host synchronises)."""
-    with sync("div_scalar", a.device):
-        d = torch.tensor(s, dtype=a.dtype, device=a.device)
-    return a / d
+    """``a / s`` as a correctly rounded f32 division on every device.  The
+    divisor is a fill on ``a``'s device, ``s`` rounded to ``a``'s dtype as
+    ``torch.tensor(s, dtype=a.dtype)`` rounds it, so no copy from the host
+    and no wait for the device."""
+    return a / torch.full((), s, dtype=a.dtype, device=a.device)
 
 
 def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
