@@ -1,10 +1,9 @@
 """Smoke run of the PyTorch port (tpt_torch) on one CUDA card.
 
 Builds the CUDA kernels from tpt_torch/csrc (one nvcc per library, all in
-parallel: the dynamic set, and trace.cu and trace_grad.cu for the demo
-scene's counts, rolled and unrolled, BUILDS), holds each against its plain
-PyTorch version on the card, and drives the port's two paths through their
-entry points:
+parallel: every source dynamic, and trace.cu for the demo scene's counts),
+holds each against its plain PyTorch version on the card, and drives the
+port's two paths through their entry points:
 
   * the render path: the progressive render of the demo scene at
     1920x1080, ray depth 13, 1 spp, thin-lens depth of field, the 256^2
@@ -27,23 +26,22 @@ entry points:
     and ``--scene demo`` (200 steps each), which must pass their own
     recovery bars, their images from the forward kernel;
   * the training path: ``tpt_torch.inverse_demo`` (512x512, ray depth 8,
-    two views, fixed-depth transport, clipped Adam, 200 steps), then 20
-    timed steps of the 1080p training step of benchmarks/train_bench.py;
-    then the backward's two kernels (the tape kernel and the adjoint
-    kernel) against the plain backward at five shapes and in the four row
+    two views, fixed-depth transport, clipped Adam, 200 steps); then the
+    backward's two kernels (the tape kernel and the adjoint kernel)
+    against the plain backward at five shapes and in the four row
     bands of the 1080p frame, the tape's live-bounce counts against the
     forward kernel's ray counts, each kernel's time, occupancy and ptxas
     report;
   * the one-hot gather: ``trace(..., gather="onehot")`` at the four
     one-frame shapes, bit for bit against the select kernel and against
     its plain version;
-  * the static counts: the (48, 7) builds, unrolled and rolled, bit for bit
-    against the dynamic build in every forward mode at the 1080p block and
-    frame and in the train_bench step's tape, then the block (both tables),
-    the select frame, the tape kernel and the environment mode at 1-16
-    frames a launch timed in turns, with each build's ptxas report, blocks per SM,
-    SASS size and nvcc seconds; the paths other than the render, bf16 and
-    viewer paths take the dynamic build, and the script checks that;
+  * the static counts: trace.cu's (48, 7) build bit for bit against the
+    dynamic build in every forward mode at the 1080p block and frame, then
+    the block (both tables), the select frame and the environment mode at
+    1-16 frames a launch timed in turns, with each build's ptxas report,
+    blocks per SM and SASS size; the paths other than the
+    render, bf16 and viewer paths take the dynamic build, and the script
+    checks that;
   * the sharded paths of ``tpt_torch.parallel`` in one gloo world of 4
     ranks on the card (1920x1080, depth 13, the 256^2 atmosphere): the
     frame renderer at (dp=4, sp=1) and (dp=2, sp=2) bit for bit against
@@ -96,15 +94,11 @@ import numpy as np
 import torch
 
 WIDTH, HEIGHT, DEPTH, BLOCK = 1920, 1080, 13, 30
-DEMO = (48, 7)   # the demo scene's counts
-# the library sets the phases use (tpt_torch.kernels._build keys): the
-# dynamic one, which every launch without counts and every one-frame and
-# backward launch takes; the demo scene's rolled build (_build.UNROLL),
-# which the environment-mode launches of the render, bf16 and viewer paths
-# take (kernels.trace.forward_library); its fully unrolled form, only
-# compared and timed
-PATH_BUILD, UNROLLED = DEMO + (0,), DEMO + (1,)
-BUILDS = (None, PATH_BUILD, UNROLLED)
+# the demo scene's counts, and the key of trace.cu's build for them
+# (tpt_torch.kernels._build), which the environment-mode launches of the
+# render, bf16 and viewer paths take (kernels.trace.forward_library); every
+# other launch takes the dynamic build
+DEMO = (48, 7)
 # the pixel that carries the 1080p step's loss without Russian roulette
 # (tests/test_torch_integrator.py LOSS_PIXEL holds its path to tpt's)
 LOSS_PIXEL = (1524, 264)
@@ -156,13 +150,8 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def build_args(key):
-    """(counts, unroll) of a build key, as load_library takes them."""
-    return (None, 1) if key is None else (key[:2], key[2])
-
-
 def build_name(key) -> str:
-    return "dynamic" if key is None else f"counts {key[:2]} unroll {key[2]}"
+    return "dynamic" if key is None else f"counts {key}"
 
 
 def bound(ops: float, nbytes: float):
@@ -575,32 +564,25 @@ def grad_phases(dev, card, K, G):
 def trace_blocks_per_sm(lib=None):
     """Blocks per SM of the forward kernel's select, table, environment and
     bf16-environment instantiations, by the occupancy API (the layout
-    entry), in ``lib`` (a loaded library set; the dynamic one by default)."""
+    entry), in ``lib`` (a loaded trace.cu library; the dynamic one by
+    default)."""
     from tpt_torch.kernels import _build
     blocks = (ctypes.c_int * 4)()
-    if (lib or _build.load_library()).tpt_trace_layout(blocks) != 0:
+    if (lib or _build.library("trace.cu")).tpt_trace_layout(blocks) != 0:
         raise AssertionError("the trace kernel's layout entry failed")
     return list(blocks)
-
-
-def tape_blocks_per_sm(lib) -> int:
-    """The tape kernel's blocks per SM in ``lib`` (its layout entry)."""
-    n = ctypes.c_int()
-    if lib.tpt_trace_grad_tape_layout(ctypes.byref(n)) != 0:
-        raise AssertionError("the tape kernel's layout entry failed")
-    return n.value
 
 
 def grad_blocks_per_sm():
     """{"tape", "adjoint": blocks per SM by the occupancy API, "grid": the
     adjoint kernel's persistent grid} from the layout entries of the
-    dynamic build."""
-    from tpt_torch.kernels import _build
-    lib = _build.load_library()
+    dynamic builds."""
+    from tpt_torch.kernels.trace_grad import libraries
+    tape_lib, adjoint_lib = libraries()
     tape, adj, grid, words = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
-    if (lib.tpt_trace_grad_tape_layout(ctypes.byref(tape)) != 0
-            or lib.tpt_trace_grad_adjoint_layout(ctypes.byref(words), ctypes.byref(adj),
-                                                 ctypes.byref(grid)) != 0):
+    if (tape_lib.tpt_trace_grad_tape_layout(ctypes.byref(tape)) != 0
+            or adjoint_lib.tpt_trace_grad_adjoint_layout(ctypes.byref(words), ctypes.byref(adj),
+                                                         ctypes.byref(grid)) != 0):
         raise AssertionError("the backward kernels' layout entries failed")
     return {"tape": tape.value, "adjoint": adj.value, "grid": grid.value}
 
@@ -640,11 +622,10 @@ def plain_split_ms(G, scene, table, cam20, cots, kw, band):
 
 
 def train_phases(dev, card, K, G):
-    """The training path through its entry point, then the 1080p training
-    step's time.  Returns the path's launches of the trace kernel and
-    {"tape", "adjoint": each backward kernel's}."""
+    """The training path through its entry point.  Returns the path's
+    launches of the trace kernel and {"tape", "adjoint": each backward
+    kernel's}."""
     from tpt_torch import inverse_demo
-    from tpt_torch.profile_block import make_train_bench_step
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "inverse_demo.json")
@@ -680,20 +661,6 @@ def train_phases(dev, card, K, G):
           f"loss {res['loss_first']:.5f} -> median {res['loss_final_median']:.5f}, sphere "
           f"MAE {res['sphere_param_mae_before']} -> {res['sphere_param_mae_after']}, "
           f"emissive MAE {res['cuboid_param_mae_before']} -> {res['cuboid_param_mae_after']}")
-
-    step = make_train_bench_step(WIDTH, HEIGHT, dev)
-    loss = step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        loss = step()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / 20 * 1e3
-    if not bool(torch.isfinite(loss)):
-        raise AssertionError("train step: loss is not finite")
-    phase("train", f"train_bench step {WIDTH}x{HEIGHT} depth {DEPTH} spp 1 rr, SGD: "
-          f"{ms:.2f} ms per step over 20 steps (host clock, synchronised), loss "
-          f"{float(loss):.5f} ({card})")
     return launches, pair
 
 
@@ -784,32 +751,19 @@ def onehot_phases(dev, card, K):
     return launches, times
 
 
-def written_tape(tape):
-    """The words of a 1-sample tape (carries, codes, counts) that the tape
-    kernel wrote, each (pixel) item's first counts bounces, as int32."""
-    carries, codes, counts = tape
-    live = (torch.arange(DEPTH, device=counts.device).view(DEPTH, 1)
-            < counts.view(1, -1))   # [bounce, pixel]
-    return (carries.view(torch.int32).view(DEPTH, 10, -1).masked_select(live.unsqueeze(1)),
-            codes.view(DEPTH, -1).masked_select(live), counts)
-
-
-def static_counts_phase(dev, card, K, G, faces):
-    """The builds for the demo scene's counts against the dynamic build on
-    the card, each library handed to the private launchers: each of the
-    1080p 30-frame block's modes (environment with the f32 and with the
-    bf16 table, slots), the 1080p frame's select and table gathers and the
-    train_bench step's tape (its written words and counts), bit for bit, at
-    unroll 1 and 0; then the block (both tables), the select frame and
-    the tape kernel timed in turns with CUDA events (dynamic, unroll 1,
-    unroll 0, unroll 0, unroll 1, dynamic), and the environment mode at 1
-    to 16 frames a launch (dynamic, unroll 0, unroll 0, dynamic); each build's ptxas report,
-    blocks per SM, SASS size and build seconds.  Returns {"ms": {item:
-    {build: [turns]}}, "reports": {build: report}}."""
+def static_counts_phase(dev, card, K, faces):
+    """trace.cu's build for the demo scene's counts against the dynamic
+    build on the card, each library handed to the private launcher: each
+    of the 1080p 30-frame block's modes (environment with the f32 and with
+    the bf16 table, slots) and the 1080p frame's select and table gathers,
+    bit for bit; then the block (both tables) and the select frame timed in
+    turns with CUDA events (dynamic, counts, counts, dynamic), and the
+    environment mode at 1 to 16 frames a launch likewise; each build's
+    ptxas report, blocks per SM and SASS size.  Returns
+    {"ms": {item: {build: [turns]}}, "reports": {build: report}}."""
     from tpt_torch import CameraConfig, demo_scene
     from tpt_torch.camera import camera_matrices
     from tpt_torch.env import pack_block_table
-    from tpt_torch.integrator import build_attr_table
     from tpt_torch.kernels import _build
 
     scene, cam = demo_scene().build(dev), CameraConfig()
@@ -819,12 +773,11 @@ def static_counts_phase(dev, card, K, G, faces):
     ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
     tables = {"f32": pack_block_table(faces),
               "bf16": pack_block_table(faces, dtype=torch.bfloat16)}
-    attr = build_attr_table(scene, DEMO)
-    cam20 = G.camera_vector(ip, iv, focal, ap, device=dev)
     frame_kw = dict(width=WIDTH, height=HEIGHT, ray_depth=DEPTH, spp=1, counts=DEMO)
     band = dict(n_rows=HEIGHT, row0=0, jitter="corner", rr=True)
-    keys = {"dynamic": None, "unroll 1": UNROLLED, "unroll 0": PATH_BUILD}
-    libs = {b: _build.load_library(*build_args(k)) for b, k in keys.items()}
+    keys = {"dynamic": None, build_name(DEMO): DEMO}
+    libs = {b: _build.library("trace.cu", k) for b, k in keys.items()}
+    path_build = build_name(DEMO)
 
     def block(table, n_frames=BLOCK):
         return lambda lib: K._launch(scene, ip, iv, 0, focal, ap, n_frames=n_frames,
@@ -835,10 +788,6 @@ def static_counts_phase(dev, card, K, G, faces):
         return lambda lib: K._launch(scene, ip, iv, 5, focal, ap, n_frames=1, n_valid=1,
                                      gather=gather, lib=lib, **band, **frame_kw)
 
-    def tape(lib):
-        return written_tape(G._tape_counts(scene, attr, cam20, 0, tape=True, lib=lib,
-                                           **frame_kw))
-
     checks = {"block, environment mode, f32 table": block(tables["f32"]),
               "block, environment mode, bf16 table": block(tables["bf16"]),
               "block, slot mode": block(None),
@@ -846,29 +795,16 @@ def static_counts_phase(dev, card, K, G, faces):
               "frame, table gather": frame("onehot")}
     for what, fn in checks.items():
         want = fn(libs["dynamic"])
-        for build in ("unroll 1", "unroll 0"):
-            assert_bits_equal(fn(libs[build]), want, f"static counts, {what}, {build}",
-                              [n for n, v in want._asdict().items() if v is not None])
+        assert_bits_equal(fn(libs[path_build]), want, f"static counts, {what}",
+                          [n for n, v in want._asdict().items() if v is not None])
         del want
-    want = tape(libs["dynamic"])
-    for build in ("unroll 1", "unroll 0"):
-        got = tape(libs[build])
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"static counts, train_bench tape, {build}: the tape differs "
-                                 f"from the dynamic build's")
-        del got
-    words = sum(t.numel() for t in want[:2])
-    del want
     torch.cuda.synchronize()
-    phase("static-counts", f"builds for {DEMO} (unroll 1 and 0) bit-equal to the dynamic "
-          f"build at {WIDTH}x{HEIGHT} depth {DEPTH}: " + ", ".join(checks) + f"; the "
-          f"train_bench step's tape ({words} written carry and code words, the counts) "
-          f"word for word ({card})")
+    phase("static-counts", f"trace.cu's build for {DEMO} bit-equal to the dynamic build at "
+          f"{WIDTH}x{HEIGHT} depth {DEPTH}: " + ", ".join(checks) + f" ({card})")
 
-    order = ("dynamic", "unroll 1", "unroll 0", "unroll 0", "unroll 1", "dynamic")
+    order = ("dynamic", path_build, path_build, "dynamic")
     timed = {"block": (block(tables["f32"]), 3), "block, bf16 table": (block(tables["bf16"]), 3),
-             "select frame": (frame("select"), 20),
-             "tape": (lambda lib: G._tape_counts(scene, attr, cam20, 0, lib=lib, **frame_kw), 5)}
+             "select frame": (frame("select"), 20)}
     ms = {}
     for item, (fn, reps) in timed.items():
         turns = [cuda_ms(lambda: fn(libs[build]), reps) for build in order]
@@ -877,45 +813,35 @@ def static_counts_phase(dev, card, K, G, faces):
               + ", ".join(f"{t:.3f}" for t in turns) + f" ({card})")
     # the environment mode by frames a launch, where the rule of
     # kernels.trace.forward_library (BLOCK_FRAMES) draws its line
-    sweep, pair = {}, ("dynamic", "unroll 0", "unroll 0", "dynamic")
+    sweep = {}
     for n in (1, 2, 4, 8, 16):
         fn = block(tables["f32"], n)
-        sweep[n] = [cuda_ms(lambda: fn(libs[build]), max(3, 60 // n)) for build in pair]
+        sweep[n] = [cuda_ms(lambda: fn(libs[build]), max(3, 60 // n)) for build in order]
     ms["environment mode by frames"] = sweep
     phase("static-counts", f"environment mode by frames a launch, ms in turns "
-          f"({', '.join(pair)}): " + "; ".join(f"{n} frames " + ", ".join(
+          f"({', '.join(order)}): " + "; ".join(f"{n} frames " + ", ".join(
               f"{t:.3f}" for t in v) for n, v in sweep.items()) + f" ({card})")
 
     reports = {}
-    for build, key in keys.items():
-        paths, _ = _build.ensure_built(*build_args(key))
-        ptxas = {**ptxas_report(paths["trace.cu"].with_suffix(".log").read_text()),
-                 **ptxas_report(paths["trace_grad.cu"].with_suffix(".log").read_text())}
-        sass = {k: v for src in _build.SPECIALISED_SOURCES
-                for k, v in sass_sizes(paths[src]).items()}
-        reports[build] = {"ptxas": ptxas, "blocks_per_sm": trace_blocks_per_sm(libs[build])
-                          + [tape_blocks_per_sm(libs[build])], "sass": sass,
-                          "build_s": {src: _build.build_seconds(paths[src])
-                                      for src in _build.SPECIALISED_SOURCES}}
-        phase("static-counts", f"{build_name(key)}: " + "; ".join(
-            f"{k} {v}" for k, v in ptxas.items()) + "; blocks per SM (select, table, "
-            "environment, bf16 environment, tape): "
-            + ", ".join(map(str, reports[build]["blocks_per_sm"])) + "; SASS instructions "
-            + (", ".join(f"{k} {v}" for k, v in sass.items()) or "not measured") + "; nvcc "
-            + ", ".join(f"{src} {t:.2f} s" for src, t in reports[build]["build_s"].items()))
+    for build, lib in libs.items():
+        ptxas, sass = ptxas_report(lib.log), sass_sizes(lib.path)
+        reports[build] = {"ptxas": ptxas, "blocks_per_sm": trace_blocks_per_sm(lib),
+                          "sass": sass}
+        phase("static-counts", f"{build}: " + "; ".join(f"{k} {v}" for k, v in ptxas.items())
+              + "; blocks per SM (select, table, environment, bf16 environment): "
+              + ", ".join(map(str, reports[build]["blocks_per_sm"])) + "; SASS instructions "
+              + (", ".join(f"{k} {v}" for k, v in sass.items()) or "not measured"))
     return {"ms": ms, "reports": reports}
 
 
 def static_entries(static, kernel: str, item: str, slot: int) -> dict:
-    """The kernels-line keys of one kernel's builds for the demo scene's
-    counts: each build's mean time of ``item``, ptxas report, blocks per SM
-    (``slot`` of the layout list), SASS size and nvcc seconds."""
+    """The kernels-line keys of one forward kernel's two builds: each
+    build's mean time of ``item``, ptxas report, blocks per SM (``slot`` of
+    the layout list) and SASS size."""
     mean = lambda v: sum(v) / len(v)
-    src = "trace_grad.cu" if kernel.startswith("trace_grad") else "trace.cu"
     return {"builds": {b: {"ms": mean(static["ms"][item][b]), "ptxas": r["ptxas"].get(kernel),
                            "blocks_per_sm": r["blocks_per_sm"][slot],
-                           "sass_instructions": r["sass"].get(kernel),
-                           "build_s": r["build_s"][src]}
+                           "sass_instructions": r["sass"].get(kernel)}
                        for b, r in static["reports"].items()}}
 
 
@@ -923,7 +849,7 @@ def env_bf16_phases(dev, card, K, scene, faces, escapes):
     """The environment mode with the bf16 table (``--env-bf16``): bit for
     bit against its plain version at the 256^2 tail and at the 30-frame
     1080p block, the block's time beside the f32 table's in turns through
-    the build its path takes (the demo scene's counts, PATH_BUILD), the mean
+    the build its path takes (trace.cu for the demo scene's counts), the mean
     relative difference of the two blocks' images (tpt's measure,
     benchmarks/exp_env_bf16.py), the instantiation's ptxas report and blocks
     per SM; then its path, ``cli render --env-bf16``, with the counts set to
@@ -976,13 +902,13 @@ def env_bf16_phases(dev, card, K, scene, faces, escapes):
     bound_ms, bound_by = trace_bound(segments, pixels * BLOCK, pixels, 0, scene.counts,
                                      env_bytes=table_bytes, escapes=escapes)
     name = "trace_progressive_kernel<false,true,true>"
-    paths, _ = _build.ensure_built(*build_args(PATH_BUILD))
-    ptxas = ptxas_report(paths["trace.cu"].with_suffix(".log").read_text()).get(name)
-    per_sm = trace_blocks_per_sm(_build.load_library(*build_args(PATH_BUILD)))[3]
+    lib = _build.library("trace.cu", DEMO)
+    ptxas = ptxas_report(lib.log).get(name)
+    per_sm = trace_blocks_per_sm(lib)[3]
     phase("env-bf16", f"the bf16 table ({table_bytes} bytes, the f32 table's "
           f"{f32_table.numel() * 4}): 256x256 4 frames (n_valid 3) and the {WIDTH}x{HEIGHT} "
           f"{BLOCK}-frame block bit-equal to the plain version, ray counts equal to the f32 "
-          f"table's; through the {build_name(PATH_BUILD)} build: block f32 {turns[0]:.3f} / "
+          f"table's; through the {build_name(DEMO)} build: block f32 {turns[0]:.3f} / "
           f"bf16 {turns[1]:.3f} / bf16 {turns[2]:.3f} / f32 "
           f"{turns[3]:.3f} ms in turns, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}); mean relative image difference to the f32 table's {rel:.3g}; "
@@ -998,20 +924,20 @@ def env_bf16_phases(dev, card, K, scene, faces, escapes):
         torch.cuda.synchronize()
         launches = (K.LAUNCHES, K.ENV_LAUNCHES, K.ENV_BF16_LAUNCHES)
         if rc != 0 or launches != (2, 2, 2) or os.path.getsize(png) == 0 \
-                or dict(K.BUILD_LAUNCHES) != {PATH_BUILD: 2}:
+                or dict(K.BUILD_LAUNCHES) != {DEMO: 2}:
             raise AssertionError(f"cli render --env-bf16: rc {rc}, launches (all, environment, "
                                  f"bf16) {launches} (want 2 each), by build "
                                  f"{dict(K.BUILD_LAUNCHES)}")
     phase("env-bf16", f"cli render --env-bf16 {WIDTH}x{HEIGHT} {2 * BLOCK} frames: {launches[2]} "
           f"kernel launches, all in the bf16 environment mode, through the "
-          f"{build_name(PATH_BUILD)} build")
+          f"{build_name(DEMO)} build")
     return {"name": f"{name} (--env-bf16)", "route": "cuda",
             "source": "tpt_torch/csrc/trace.cu", "replaces": "tpt/kernels/trace.py:519",
             "launches": launches[2], "max_abs_err": 0.0, "ms": (turns[1] + turns[2]) / 2,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "f32_table_ms": (turns[0] + turns[3]) / 2,
             "mean_rel_image_diff": rel, "ptxas": ptxas, "blocks_per_sm": per_sm,
-            "build": build_name(PATH_BUILD)}
+            "build": build_name(DEMO)}
 
 
 def oracle_phase(dev, card, K):
@@ -1758,7 +1684,7 @@ def viewer_phase(dev, card, K):
             K.BUILD_LAUNCHES.clear()
             disp = ses.render_one(BLOCK)
             launches += K.ENV_LAUNCHES
-            spec += K.BUILD_LAUNCHES[PATH_BUILD]
+            spec += K.BUILD_LAUNCHES[DEMO]
             want, rays = progressive_frames(want, ses.scene, ses.env_table, ip, iv, b * BLOCK,
                                             cam.focal_length, cam.aperture_diameter,
                                             width=WIDTH, height=HEIGHT,
@@ -1769,7 +1695,7 @@ def viewer_phase(dev, card, K):
         if launches != 2 or spec != 2 or disp.shape != (HEIGHT, WIDTH, 3) \
                 or disp.dtype != np.uint8:
             raise AssertionError(f"viewer: {launches} environment-mode launches in two draws, "
-                                 f"{spec} through the {build_name(PATH_BUILD)} build (want 2, "
+                                 f"{spec} through the {build_name(DEMO)} build (want 2, "
                                  f"2), display {disp.shape} {disp.dtype}")
         shot = ses.screenshot()
         if not os.path.getsize(shot) > 0:
@@ -1795,7 +1721,7 @@ def viewer_phase(dev, card, K):
                                     ray_depth=ses.cfg.ray_depth, spp=ses.cfg.spp)
         fs = frame_stats(lambda: ses.render_one(1), rays=int(one))
     phase("viewer", f"ViewerSession(size=256, device='cuda') -> set_size({WIDTH}, {HEIGHT}); "
-          f"render_one({BLOCK}) twice through the {build_name(PATH_BUILD)} build, "
+          f"render_one({BLOCK}) twice through the {build_name(DEMO)} build, "
           f"bit-equal to progressive_frames without counts, the dynamic build ({launches} "
           f"environment-mode launches); a held key resets; the centre "
           f"pick names {pick.split(' at ')[0].replace('picked: ', '')}, as cli pick; screenshot "
@@ -1849,26 +1775,25 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} sm_{''.join(map(str, torch.cuda.get_device_capability(0)))} "
           f"count {torch.cuda.device_count()}")
 
-    # ---- 2. build: every library set a phase uses, all nvcc runs at once ----
-    if _build.build_key(DEMO) != PATH_BUILD:
-        raise AssertionError(f"the render paths take {_build.build_key(DEMO)}, not {PATH_BUILD}")
+    # ---- 2. build: every library a phase uses, all nvcc runs at once ----
     t0 = time.perf_counter()
-    built = _build.build_all(BUILDS)
-    for key in BUILDS:
-        _build.load_library(*build_args(key))
+    wanted = [(src, None) for src in _build.SOURCES] + [("trace.cu", DEMO)]
+    before = {pair for pair in wanted if _build.library_path(*pair).exists()}
+    built = _build.build_all(wanted)
+    for src, key in built:
+        _build.library(src, key)
     wall = time.perf_counter() - t0
-    paths, log = built[None]
-    phase("build", f"{wall:.2f} s for {sum(len(p) for p, _ in built.values())} libraries in "
-          f"{len(BUILDS)} sets -> "
-          f"{', '.join(os.path.relpath(p, REPO) for p in paths.values())}; ptxas: "
-          + "; ".join(f"{k} {v}" for k, v in ptxas_report(log).items()))
-    for key in BUILDS:
-        phase("build", f"{build_name(key)}: " + "; ".join(
-            f"{src} {_build.build_seconds(path):.2f} s" for src, path in built[key][0].items()))
+    phase("build", f"{wall:.2f} s for {len(built)} libraries -> "
+          f"{', '.join(os.path.relpath(p, REPO) for p, _ in built.values())}; ptxas: "
+          + "; ".join(f"{k} {v}" for _, log in built.values()
+                      for k, v in ptxas_report(log).items()))
+    phase("build", "nvcc seconds: " + "; ".join(
+        f"{src} {build_name(key)} "
+        + ("built before" if (src, key) in before else f"{_build.build_seconds(path):.2f} s")
+        for (src, key), (path, _) in built.items()))
     per_sm = trace_blocks_per_sm()
     phase("trace-build", "csrc/trace.cu ptxas: " + "; ".join(
-        f"{k} {v}" for k, v in ptxas_report(
-            paths["trace.cu"].with_suffix(".log").read_text()).items())
+        f"{k} {v}" for k, v in ptxas_report(built["trace.cu", None][1]).items())
         + "; blocks per SM (select, table, environment, bf16 environment): "
         + ", ".join(map(str, per_sm)))
 
@@ -2011,7 +1936,7 @@ def main() -> int:
         if rc != 0 or launches != 3 or env_launches != 3:
             raise AssertionError(f"cli render: rc {rc}, {launches} kernel launches, "
                                  f"{env_launches} in the environment mode (want 3, 3)")
-        if main_builds != {PATH_BUILD: 3}:
+        if main_builds != {DEMO: 3}:
             raise AssertionError(f"cli render: launches by build {main_builds} (want all 3 "
                                  f"through the build for the scene's counts {DEMO})")
         state = load_checkpoint(ckpt, dev)
@@ -2021,7 +1946,7 @@ def main() -> int:
             raise AssertionError("cli render: bad accumulator or PNG")
     phase("main-path", f"cli render {WIDTH}x{HEIGHT} {3 * BLOCK} frames in {BLOCK}-frame "
           f"blocks: {launches} kernel launches, all in the environment mode and through the "
-          f"{build_name(PATH_BUILD)} build, {wall:.2f} s "
+          f"{build_name(DEMO)} build, {wall:.2f} s "
           f"wall incl. the atmosphere, accumulator finite, mean "
           f"{float(state.image.mean()):.4f}")
 
@@ -2061,11 +1986,11 @@ def main() -> int:
     if block_bytes >= slot_bytes:
         raise AssertionError(f"a block allocated {block_bytes} bytes: miss slots are "
                              f"{slot_bytes}")
-    for counts, key in ((path_counts, PATH_BUILD), (None, None)):
+    for counts, key in ((path_counts, DEMO), (None, None)):
         ms_block, mrays = (sum(v) / 2 for v in zip(*through[counts]))
         phase("throughput", f"{build_name(key)} build: {ms_block:.2f} ms per {BLOCK}-frame "
               f"block, {mrays:.1f} Mrays/s (traced segments / s; 3 blocks at a time in turns "
-              f"{build_name(PATH_BUILD)}, dynamic, dynamic, {build_name(PATH_BUILD)}) on "
+              f"{build_name(DEMO)}, dynamic, dynamic, {build_name(DEMO)}) on "
               f"{card}")
     phase("throughput", f"a block's peak allocation {block_bytes} bytes above the {resident} "
           f"resident (the miss slots would be {slot_bytes})")
@@ -2084,7 +2009,7 @@ def main() -> int:
     grad_err, grad_times = grad_phases(dev, card, K, G)
 
     onehot_launches, onehot_times = onehot_phases(dev, card, K)
-    static = static_counts_phase(dev, card, K, G, faces)
+    static = static_counts_phase(dev, card, K, faces)
     probe_kernels = probe_phases(dev, card)
 
     # the sharded paths in worlds of ranks on this card, then the viewer and
@@ -2103,8 +2028,7 @@ def main() -> int:
     # counts: the launches of the render path and the viewer's draws, its
     # times the same block's in the static-counts turns, beside every
     # build's.  The backward kernels' launches are those of the training
-    # path and the sharded train step, all through the dynamic build; the
-    # tape kernel's entry adds its builds for the counts, compared only.
+    # path and the sharded train step, all through the dynamic build.
     # The table mode (the one-hot gather) is timed per 1080p frame, the
     # bf16 environment mode per block through the build its path takes,
     # each with its own path's launches.  No one PyTorch call computes a
@@ -2125,18 +2049,18 @@ def main() -> int:
         "lane_efficiency": times["lane_efficiency"],
         "build": "dynamic",
     }, {
-        "name": f"{env} ({build_name(PATH_BUILD)})",
+        "name": f"{env} ({build_name(DEMO)})",
         "route": "cuda",
         "source": "tpt_torch/csrc/trace.cu",
         "replaces": "tpt/kernels/trace.py:519",
-        "launches": main_builds[PATH_BUILD] + viewer_launches,
+        "launches": main_builds[DEMO] + viewer_launches,
         "max_abs_err": max_err,
-        "ms": sum(static["ms"]["block"]["unroll 0"]) / 2,
+        "ms": sum(static["ms"]["block"][build_name(DEMO)]) / 2,
         "plain_ms": times["block_plain_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": None,
-        "build": build_name(PATH_BUILD),
+        "build": build_name(DEMO),
         **static_entries(static, env, "block", 2),
     }, {
         "name": "trace_progressive_kernel<true,false,false> (gather=onehot)",
@@ -2167,8 +2091,6 @@ def main() -> int:
         "blocks_per_sm": grad_times["kernels"][kernel]["blocks_per_sm"],
         "pair_ms": grad_times["ms"],
         "build": "dynamic",
-        **(static_entries(static, "trace_grad_tape_kernel", "tape", 4)
-           if kernel == "tape" else {}),
     } for kernel, source in (("tape", "trace_grad.cu"), ("adjoint", "trace_grad_adjoint.cu"))]
         + probe_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

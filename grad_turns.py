@@ -10,11 +10,9 @@ OTHER_CHECKOUT, one turn of it first and one last.  A turn reports:
 
   * for every ``__global__`` kernel of the checkout's csrc/trace_grad*.cu:
     ptxas's registers, spill stores and loads and stack frame
-    (``chip_smoke.ptxas_report`` of the build's log), and the blocks per SM
-    that cudaOccupancyMaxActiveBlocksPerMultiprocessor gives at the
-    kernel's launch bound (``chip_smoke.grad_blocks_per_sm``; a checkout
-    without the layout entries builds each source once more beside an
-    occupancy entry, and its report comes from that build);
+    (``chip_smoke.ptxas_report`` of the builds' logs), and the blocks per
+    SM that cudaOccupancyMaxActiveBlocksPerMultiprocessor gives at the
+    kernel's launch bound (``chip_smoke.grad_blocks_per_sm``);
   * ``trace_grad`` at the 1080p train_bench launch (1920x1080, depth 13,
     1 spp, Russian roulette, frame 0) and at the inverse demo's two 512^2
     launches (depth 8, rr off): the call's time by CUDA events, and each
@@ -24,16 +22,15 @@ OTHER_CHECKOUT, one turn of it first and one last.  A turn reports:
     the host time a call (chip_smoke.host_ms: 200 calls, no synchronise);
   * ``python -m tpt_torch.inverse_demo`` for 40 steps at 512^2: its wall
     time (the PNGs included) and the caching allocator's cudaMalloc calls
-    and retries during it (torch.cuda.memory_stats);
-  * the 1080p train_bench step (``profile_block.make_train_bench_step``):
-    20 steps after one, by the host clock, ending in a synchronise.
+    and retries during it (torch.cuda.memory_stats).
 
 The turns of this checkout also report the lane efficiency of a
 one-thread-per-pixel reverse sweep at each launch
 (``tpt_torch.kernels.trace_grad.lane_efficiency`` of the forward kernel's
 ray counts; it depends on the data only).  Each turn prints one JSON line
-{"turn", "checkout", "card", "kernels", "launches", "inverse_demo_40_steps",
-"train_bench_step_ms"}.  Exits non-zero if a turn fails.
+{"turn", "checkout", "card", "kernels", "launches", "inverse_demo_40_steps"}.
+Both checkouts need ``tpt_torch.kernels.trace_grad.libraries``.  Exits
+non-zero if a turn fails.
 """
 
 from __future__ import annotations
@@ -45,7 +42,7 @@ import sys
 from probe_turns import HERE, other_checkout, run_turns
 
 TURN = r'''
-import ctypes, glob, importlib.util, json, os, re, subprocess, sys, tempfile, time
+import importlib.util, json, os, sys, tempfile, time
 import torch
 sys.path.insert(0, {root!r})
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
@@ -57,50 +54,17 @@ from tpt_torch import CameraConfig, demo_scene
 from tpt_torch.camera import camera_matrices
 from tpt_torch.integrator import build_attr_table
 from tpt_torch.inverse_demo import GRID_CAM, RAY_DEPTH
-from tpt_torch.kernels import _build
 from tpt_torch.kernels import trace as K
 from tpt_torch.kernels import trace_grad as G
 
-KERNEL = re.compile(r"__global__\s+void\s+__launch_bounds__\(([^),]+)[^)]*\)\s+(\w+)\s*\(")
-
-def occupancy_build():
-    """(nvcc's output, {{kernel: blocks per SM}}) of every csrc/trace_grad*.cu
-    built beside an occupancy entry for each of its kernels."""
-    log, occ = "", {{}}
-    tmp = tempfile.mkdtemp()
-    for path in sorted(glob.glob(str(_build.SRC_DIR / "trace_grad*.cu"))):
-        src = os.path.basename(path)
-        kernels = KERNEL.findall(open(path).read())
-        wrapper, lib = os.path.join(tmp, "occ_" + src), os.path.join(tmp, "lib_" + src + ".so")
-        with open(wrapper, "w") as f:
-            f.write(f'#include "{{path}}"\n' + "".join(
-                f'extern "C" int occupancy_{{name}}(int* n) {{{{ return (int)'
-                f'cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, {{name}}, {{block}}, 0); }}}}\n'
-                for block, name in kernels))
-        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR),
-                               "-o", lib, wrapper],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc {{src}}: {{proc.stdout}}{{proc.stderr}}")
-        log += proc.stdout + proc.stderr
-        handle = ctypes.CDLL(lib)
-        for _, name in kernels:
-            n = ctypes.c_int()
-            assert getattr(handle, f"occupancy_{{name}}")(ctypes.byref(n)) == 0, name
-            occ[name] = n.value
-    return log, occ
-
 def kernel_reports():
     """{{kernel: {{"ptxas": its report, "blocks_per_sm"}}}} for the backward's kernels."""
-    if hasattr(_build.load_library(), "tpt_trace_grad_adjoint_layout"):
-        log = _build.ensure_built()[1]
-        per_sm = smoke.grad_blocks_per_sm()
-        occ = {{"trace_grad_tape_kernel": per_sm["tape"],
-               "trace_grad_adjoint_kernel": per_sm["adjoint"]}}
-    else:
-        log, occ = occupancy_build()
+    per_sm = smoke.grad_blocks_per_sm()
+    occ = {{"trace_grad_tape_kernel": per_sm["tape"],
+           "trace_grad_adjoint_kernel": per_sm["adjoint"]}}
     return {{k: {{"ptxas": v, "blocks_per_sm": occ[k.split("<")[0]]}}
-            for k, v in smoke.ptxas_report(log).items() if k.split("<")[0] in occ}}
+            for lib in G.libraries() for k, v in smoke.ptxas_report(lib.log).items()
+            if k.split("<")[0] in occ}}
 
 dev = torch.device("cuda")
 card = smoke.gpu_name_and_power()
@@ -151,19 +115,8 @@ demo = {{"wall_s": demo_s,
         "cuda_mallocs": after["segment.all.allocated"] - before["segment.all.allocated"],
         "alloc_retries": after["num_alloc_retries"] - before["num_alloc_retries"]}}
 
-from tpt_torch.profile_block import make_train_bench_step
-step = make_train_bench_step(1920, 1080, dev)
-step()
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-for _ in range(20):
-    loss = step()
-torch.cuda.synchronize()
-step_ms = (time.perf_counter() - t0) / 20 * 1e3
-assert bool(torch.isfinite(loss))
 print(json.dumps({{"turn": {turn}, "checkout": {root!r}, "card": card, "kernels": kernel_reports(),
-                  "launches": launches, "inverse_demo_40_steps": demo,
-                  "train_bench_step_ms": step_ms}}), flush=True)
+                  "launches": launches, "inverse_demo_40_steps": demo}}), flush=True)
 '''
 
 

@@ -23,19 +23,18 @@ OTHER_CHECKOUT, one turn of it first and one last.  A turn reports:
     mode) by CUDA events, with its segments, and the same launch through
     the dynamic build (the environment mode's launches without counts);
     its lane efficiency, the segments over 32 x the warps' loop
-    iterations (the kernel's ``warp_iters`` where the checkout has them,
-    else the per-lane loop's, ``tpt_torch.kernels.trace_grad.
-    lane_efficiency`` of the ray counts); and, for the 30-frame block, the
-    escapes
-    (``chip_smoke.escaped_samples`` of the slot mode's launch at the same
-    inputs) and the bound (``chip_smoke.trace_bound``);
+    iterations (the kernel's ``warp_iters``, and the per-lane loop's,
+    ``tpt_torch.kernels.trace_grad.lane_efficiency`` of the ray counts);
+    and, for the 30-frame block, the escapes (``chip_smoke.escaped_samples``
+    of the slot mode's launch at the same inputs) and the bound
+    (``chip_smoke.trace_bound``);
   * the per-frame launches: the 1080p frame (depth 13, Russian roulette,
     the train_bench step's) and the inverse demo's two 512^2 depth-8
     launches (rr off, its grid and default views): ms by CUDA events, and
     the 1080p frame's lane efficiency.
 
-Both checkouts need the forward kernel's environment mode, its layout
-entry and the builds for given counts.
+Both checkouts need ``tpt_torch.kernels._build.library``, which loads one
+library per source and counts.
 
 Each turn prints one JSON line {"turn", "checkout", "card", "kernels",
 "blocks", "frames"}.  Exits non-zero if a turn fails.
@@ -45,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import inspect
 import json
 import os
 import re
@@ -91,12 +89,11 @@ def smem_bytes(log: str) -> dict:
 def kernel_reports(smoke, _build, counts=None) -> dict:
     """{instantiation: {"ptxas", "smem_bytes", "blocks_per_sm"}} of the
     forward kernel in the build for ``counts`` (None: the dynamic one)."""
-    paths, _ = _build.ensure_built(counts)
-    log = paths["trace.cu"].with_suffix(".log").read_text()
-    report, smem = smoke.ptxas_report(log), smem_bytes(log)
+    lib = _build.library("trace.cu", counts)
+    report, smem = smoke.ptxas_report(lib.log), smem_bytes(lib.log)
     names = [f"trace_progressive_kernel<{t}>" for t in (
         "false,false,false", "true,false,false", "false,true,false", "false,true,true")]
-    per_sm = smoke.trace_blocks_per_sm(_build.load_library(counts))
+    per_sm = smoke.trace_blocks_per_sm(lib)
     return {n: {"ptxas": report.get(n), "smem_bytes": smem.get(n), "blocks_per_sm": b}
             for n, b in zip(names, per_sm)}
 
@@ -129,7 +126,6 @@ def turn(root: str, index: int) -> None:
     focal, ap = cam.focal_length, cam.aperture_diameter
     table = pack_block_table(compute_atmosphere(AtmosphereConfig(size=256), dev))
     ip, iv, _ = camera_matrices(cam, WIDTH, HEIGHT)
-    pooled = "warp_iters" in inspect.signature(K._launch).parameters
 
     rec["blocks"] = {}
     for n_frames in BLOCKS:
@@ -174,15 +170,14 @@ def turn(root: str, index: int) -> None:
         segments = int(res.ray_count.sum())
         out["kernel"] = {"ms": smoke.cuda_ms(launch, reps), "segments": segments,
                          "dynamic_build_ms": smoke.cuda_ms(launch_dynamic, reps)}
-        out["lane_efficiency"] = {"per_lane": G.lane_efficiency(res.ray_count)}
-        if pooled:
-            iters = torch.empty(K.n_warps(WIDTH * HEIGHT), dtype=torch.int32, device=dev)
-            again = K._launch(scene, ip, iv, 0, focal, ap, n_valid=n_frames, n_rows=HEIGHT,
-                              row0=0, jitter="corner", rr=True, env_table=table,
-                              warp_iters=iters, **kw)
-            if not torch.equal(again.ray_count, res.ray_count):
-                raise AssertionError("two launches at the same inputs gave other ray counts")
-            out["lane_efficiency"]["pooled"] = segments / (32.0 * int(iters.sum()))
+        iters = torch.empty(K.n_warps(WIDTH * HEIGHT), dtype=torch.int32, device=dev)
+        again = K._launch(scene, ip, iv, 0, focal, ap, n_valid=n_frames, n_rows=HEIGHT,
+                          row0=0, jitter="corner", rr=True, env_table=table,
+                          warp_iters=iters, **kw)
+        if not torch.equal(again.ray_count, res.ray_count):
+            raise AssertionError("two launches at the same inputs gave other ray counts")
+        out["lane_efficiency"] = {"per_lane": G.lane_efficiency(res.ray_count),
+                                  "pooled": segments / (32.0 * int(iters.sum()))}
         del res
         if n_frames == BLOCKS[-1]:
             slots = {k: v for k, v in kw.items() if k != "counts"}

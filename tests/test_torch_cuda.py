@@ -159,38 +159,21 @@ def test_trace_layout_gives_blocks_per_sm(device):
     import ctypes
     from tpt_torch.kernels import _build
     blocks = (ctypes.c_int * 4)()   # select, table, environment, bf16 environment
-    assert _build.load_library().tpt_trace_layout(blocks) == 0
+    assert _build.library("trace.cu").tpt_trace_layout(blocks) == 0
     assert all(1 <= b <= 16 for b in blocks), list(blocks)
 
 
-def written_tape(tape, spp, depth, npix):
-    """The words of a tape (carries, codes, counts) that the tape kernel
-    wrote: each (pixel, sample) item's first counts bounces; the rest of
-    the buffers is never zeroed."""
-    carries, codes, counts = tape
-    counts = counts.view(spp, 1, npix)
-    live = torch.arange(depth, device=counts.device).view(1, depth, 1) < counts
-    return (carries.view(spp, depth, 10, npix).view(torch.int32)[live.unsqueeze(2).expand(
-                spp, depth, 10, npix)], codes.view(spp, depth, npix)[live], counts)
-
-
-@pytest.mark.parametrize("unroll", [1, 0])
-def test_specialised_build_equals_the_dynamic_build(device, unroll):
-    """The build for the demo scene's counts (48, 7), its scan unrolled or
-    rolled, against the dynamic build, each library handed to the private
-    launchers: every forward mode (select, table, slots, f32 and bf16
-    environment) bit for bit, and the tape kernel's written tape and counts
-    word for word.  Through the wrappers, only the environment mode's block
-    with counts takes the (rolled) build for them."""
-    from tpt_torch.integrator import build_attr_table
+def test_specialised_build_equals_the_dynamic_build(device):
+    """trace.cu built for the demo scene's counts (48, 7) against the
+    dynamic build, each library handed to the private launcher: every
+    forward mode (select, table, slots, f32 and bf16 environment) bit for
+    bit.  Through the wrappers, only the environment mode's block with
+    counts takes the build for them."""
     from tpt_torch.kernels import _build
-    from tpt_torch.kernels import trace_grad as G
     scene, inv_p, inv_v, focal, ap = setup(device, 48)
     counts = scene.counts
     faces = constant_environment((0.7, 0.8, 1.0), device=device)
     tables = (pack_block_table(faces), pack_block_table(faces, dtype=torch.bfloat16))
-    cam20 = G.camera_vector(inv_p, inv_v, focal, ap, device=device)
-    attr = build_attr_table(scene, counts)
     kw = dict(width=48, height=48, ray_depth=13, spp=2, counts=counts)
     band = dict(n_rows=48, row0=0, jitter="corner", rr=True)
 
@@ -201,12 +184,11 @@ def test_specialised_build_equals_the_dynamic_build(device, unroll):
                K._launch(*args, n_frames=3, n_valid=2, lib=lib, **band, **kw)]
         out += [K._launch(*args, n_frames=3, n_valid=3, env_table=t, lib=lib, **band, **kw)
                 for t in tables]
-        tape = G._tape_counts(scene, attr, cam20, 5, tape=True, lib=lib, **kw)
         torch.cuda.synchronize()
-        return out, written_tape(tape, 2, 13, 48 * 48)
+        return out
 
-    spec, spec_tape = run(_build.load_library(counts, unroll))
-    dyn, dyn_tape = run(_build.load_library())
+    spec = run(_build.library("trace.cu", counts))
+    dyn = run(_build.library("trace.cu"))
     for got, want in zip(spec, dyn):
         for name, g in got._asdict().items():
             w = getattr(want, name)
@@ -214,8 +196,6 @@ def test_specialised_build_equals_the_dynamic_build(device, unroll):
             if g is not None:
                 assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
                                    w.view(torch.int32) if w.dtype == torch.float32 else w), name
-    for g, w in zip(spec_tape, dyn_tape):
-        assert torch.equal(g, w)
     K.BUILD_LAUNCHES.clear()
     args = (scene, inv_p, inv_v, 5, focal, ap)
     K.trace(*args, **kw)
@@ -223,16 +203,16 @@ def test_specialised_build_equals_the_dynamic_build(device, unroll):
     K.trace_progressive(*args, n_frames=3, env_table=tables[0], **kw)
     K.trace_progressive(*args, n_frames=3, env_table=tables[0], **{**kw, "counts": None})
     K.trace_progressive(*args, n_frames=1, env_table=tables[0], **kw)
-    assert dict(K.BUILD_LAUNCHES) == {None: 4, (*counts, _build.UNROLL): 1}
+    assert dict(K.BUILD_LAUNCHES) == {None: 4, counts: 1}
 
 
 def test_specialised_library_refuses_other_counts(device):
-    """A library built for (4, 0) returns cudaErrorInvalidValue, and
+    """trace.cu built for (4, 0) returns cudaErrorInvalidValue, and
     launches nothing, for the demo scene's (48, 7); the checks come before
     any pointer is read, so null pointers do here."""
     from tpt_torch.kernels import _build
-    lib = _build.load_library((4, 0))
-    assert lib.key == (4, 0, _build.UNROLL) and not hasattr(lib, "tpt_probe_gather")
+    lib = _build.library("trace.cu", (4, 0))
+    assert lib.key == (4, 0) and not hasattr(lib, "tpt_trace_grad_tape")
     band = (48, 48, 48, 0, 0, 1, 1, 1, 13, 0, 1)   # width .. russian_roulette
     table = pack_block_table(constant_environment((0.7, 0.8, 1.0), device=device))
     assert lib.tpt_trace_progressive(*[None] * 5, 48, 7, None, *band, *[None] * 5, None) == 1
@@ -240,19 +220,7 @@ def test_specialised_library_refuses_other_counts(device):
                                          *[None] * 4, None) == 1
     assert lib.tpt_trace_onehot(*[None] * 4, 48, 7, None, *band[:4], 0, 1, 13, 0, 1,
                                 *[None] * 5, None) == 1
-    assert lib.tpt_trace_grad_tape(*[None] * 4, 48, 7, None, 0, 48, 48, 48, 0, 1, 13, 0, 1, 0,
-                                   31, *[None] * 3, None) == 1
     torch.cuda.synchronize()
-
-
-def test_profile_block_splits_the_block(device):
-    from tpt_torch.profile_block import profile_blocks
-    summary, rows = profile_blocks(64, 64, 3, 1)
-    assert summary["trace_kernel_ms_per_block"] > 0 and summary["segments_per_block"] > 0
-    assert summary["fold_ms_per_block"] > 0 and summary["rest_ms_per_block"] >= 0
-    assert "env_gather_ms_per_block" not in summary
-    assert not any("gather" in key.lower() for _, _, key in rows)   # no torch env fetch
-    assert 0.0 <= summary["idle_share"] < 1.0 and rows
 
 
 def grad_setup(device, size, spp, seed=5):
@@ -533,14 +501,6 @@ def test_render_diff_runs_both_kernels(device):
     assert leaves[5].grad.abs().sum() > 0   # the environment's cotangent
 
 
-def test_profile_block_splits_a_train_step(device):
-    from tpt_torch.profile_block import profile_train_steps
-    summary, rows = profile_train_steps(64, 64, 2)
-    assert summary["forward_kernel_ms_per_step"] > 0 and summary["backward_kernel_ms_per_step"] > 0
-    assert summary["tape_kernel_ms_per_step"] > 0 and summary["adjoint_kernel_ms_per_step"] > 0
-    assert summary["optimizer_ms_per_step"] >= 0 and 0.0 <= summary["idle_share"] < 1.0 and rows
-
-
 def assert_bits_equal(got, want):
     for name in ("radiance", "miss_dir", "miss_thr", "ray_count", "seed"):
         g, w = getattr(got, name), getattr(want, name)
@@ -662,8 +622,8 @@ def test_scatter_layout_comes_from_the_source(device):
     from tpt_torch.kernels import _build
     from tpt_torch.kernels import probes as P
     words, weights_bytes = ctypes.c_int64(), ctypes.c_int64()
-    assert _build.load_library().tpt_probe_scatter_layout(ctypes.byref(words),
-                                                          ctypes.byref(weights_bytes)) == 0
+    assert _build.library("probes.cu").tpt_probe_scatter_layout(
+        ctypes.byref(words), ctypes.byref(weights_bytes)) == 0
     assert weights_bytes.value == ctypes.sizeof(_build.ColWeights) == 2 * 4 * _build.MAX_COLS
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     assert (words.value - 1) % (2 * P.R) == 0 and words.value > 2 * P.R * sms
@@ -770,7 +730,7 @@ def test_gather_refuses_misaligned_or_short_inputs(device):
         P.p1(shifted, table, g)
     with pytest.raises(ValueError, match="tile"):
         P.p1(idx[:8], table, g[:8])
-    lib = _build.load_library()
+    lib = _build.library("probes.cu")
     out = torch.empty_like(g)
     stream = torch.cuda.current_stream().cuda_stream
     for i, o, n in ((idx.data_ptr(), out.data_ptr(), g.numel() - 2),
@@ -811,7 +771,7 @@ def _world(n_ranks, jobs, backend, device):
     from tpt_torch.kernels import _build
     from tpt_torch.parallel import launch
     from tpt_torch.parallel.runs import run_jobs
-    _build.load_library()
+    _build.build_all((src, None) for src in _build.SOURCES)
     setup = {"scene": "demo", "camera": {}, "env": (0.3, 0.45, 0.6), "device": "cuda"}
     return launch(run_jobs, n_ranks, setup, jobs, backend=backend, device=device, timeout=300)
 

@@ -74,8 +74,8 @@ def launch(scene, size, table, build, frame0=7, **kw):
     kw.update(width=width, height=height, ray_depth=13, counts=COUNTS, env_table=table)
     iters = torch.full((K.n_warps(kw["n_rows"] * width),), -1, dtype=torch.int32,
                        device=scene.device)
-    res = K._launch(scene, inv_p, inv_v, frame0, focal, ap, lib=_build.load_library(build),
-                    warp_iters=iters, **kw)
+    res = K._launch(scene, inv_p, inv_v, frame0, focal, ap,
+                    lib=_build.library("trace.cu", build), warp_iters=iters, **kw)
     torch.cuda.synchronize()
     return res, iters, (inv_p, inv_v, frame0, focal, ap), kw
 

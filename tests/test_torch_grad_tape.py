@@ -157,10 +157,10 @@ print(f"ptxas info    : Used {{len(stem) * 4}} registers, used 0 barriers, 396 b
 """
 
 
-def test_ensure_built_keeps_each_report_beside_its_library(tmp_path, monkeypatch):
-    """A build keeps each source's compiler output beside its library, and
-    a later call, which builds nothing, returns the same reports; they are
-    what chip_smoke.ptxas_report (and grad_turns.py) read.  nvcc is a stub
+def test_build_all_keeps_each_report_beside_its_library(tmp_path, monkeypatch):
+    """A build keeps each library's compiler output beside it, and a later
+    call, which builds nothing, returns the same reports; they are what
+    chip_smoke.ptxas_report (and grad_turns.py) read.  nvcc is a stub
     here, so this runs on the CPU."""
     import sys
     nvcc = tmp_path / "nvcc"
@@ -168,21 +168,22 @@ def test_ensure_built_keeps_each_report_beside_its_library(tmp_path, monkeypatch
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    paths, log = _build.ensure_built()
-    assert set(paths) == {"trace.cu", "trace_grad.cu", "trace_grad_adjoint.cu", "probes.cu"}
-    assert all(p.exists() and p.with_suffix(".log").exists() for p in paths.values())
-    assert _build.ensure_built() == (paths, log)
+    built = _build.build_all((src, None) for src in _build.SOURCES)
+    assert set(built) == {(src, None) for src in ("trace.cu", "trace_grad.cu",
+                                                  "trace_grad_adjoint.cu", "probes.cu")}
+    assert all(p.exists() and p.with_suffix(".log").exists() for p, _ in built.values())
+    assert _build.build_all(built) == built
     repo = str(_build.PACKAGE_DIR.parent)
     sys.path.insert(0, repo)
     try:
         import chip_smoke
     finally:
         sys.path.remove(repo)
-    report = chip_smoke.ptxas_report(log)
-    for src in paths:
+    for (src, _), (_, log) in built.items():
         stem = src[:-3]
-        assert report[f"{stem}_kernel"] == (f"{len(stem) * 4} registers, 8/12 bytes spill "
-                                            f"stores/loads, {len(stem)} bytes stack"), src
+        assert chip_smoke.ptxas_report(log)[f"{stem}_kernel"] == (
+            f"{len(stem) * 4} registers, 8/12 bytes spill stores/loads, {len(stem)} bytes "
+            f"stack"), src
 
 
 def scene_inputs(spp=1, size=8):

@@ -161,18 +161,10 @@ def test_cli_render_cpu(tmp_path):
             cli.main(["render", "--device", "cuda", "--frames", "1", "--out", out])
 
 
-@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the run without a card")
-def test_profile_block_needs_a_card():
-    from tpt_torch.profile_block import profile_blocks
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        profile_blocks(16, 16, 2, 1)
-
-
 def test_port_imports_no_jax():
     code = ("import sys; import tpt_torch, tpt_torch.cli, tpt_torch.kernels.render, "
-            "tpt_torch.kernels.trace, tpt_torch.sky, tpt_torch.profile_block, "
-            "tpt_torch.reference, tpt_torch.silhouette, tpt_torch.silhouette_demo, "
-            "tpt_torch.pick; "
+            "tpt_torch.kernels.trace, tpt_torch.sky, tpt_torch.reference, "
+            "tpt_torch.silhouette, tpt_torch.silhouette_demo, tpt_torch.pick; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'tpt' or m.startswith('tpt.')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

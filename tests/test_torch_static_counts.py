@@ -1,8 +1,8 @@
-"""The static-count builds on the CPU: the build key and the flags each set
-is built with (nvcc is a stub here), the plain path's indifference to
-``counts`` beside tpt's transport, the build's check of ``unroll``, which
-launches take a build for counts, the counts the render callers choose,
-and the sharded entry points' default device.  The kernels themselves, and their bits against
+"""The static-count builds on the CPU: the build key and the flags each
+library is built with (nvcc is a stub here), the plain path's indifference
+to ``counts`` beside tpt's transport, which launches take a build for
+counts, the counts the render callers choose, and the sharded entry
+points' default device.  The kernels themselves, and their bits against
 the dynamic build, are held on the card (tests/test_torch_cuda.py)."""
 
 import inspect
@@ -26,6 +26,7 @@ from tpt_torch.env import constant_environment, pack_block_table
 from tpt_torch.kernels import _build
 from tpt_torch.kernels import render as R
 from tpt_torch.kernels import trace as K
+from tpt_torch.kernels import trace_grad as G
 from tpt_torch.parallel import launch
 from tpt_torch.parallel import runs
 
@@ -34,26 +35,18 @@ from test_torch_integrator import CORNELL_CAM, assert_parity, setup, to_torch_sc
 torch.set_num_threads(1)
 
 
-def test_build_key_differs_per_counts_and_unroll():
-    keys = [None, (48, 7, 1), (48, 7, 0), (4, 0, 1), (1, 0, 1)]
-    assert [_build.build_key(c, u) for c, u in
-            ((None, 1), ((48, 7), 1), ((48, 7), 0), ((4, 0), 1), ([1, 0], True))] == keys
-    assert _build.build_key(None, 0) is None   # the dynamic set ignores unroll
-    assert _build.build_key((48, 7)) == (48, 7, _build.UNROLL) == (48, 7, 0)
-    for src in _build.SPECIALISED_SOURCES:
-        paths = [_build.library_path(src, *((None, 1) if k is None else (k[:2], k[2])))
-                 for k in keys]
+def test_build_key_differs_per_counts():
+    keys = [None, (48, 7), (4, 0), (1, 0)]
+    assert [_build.build_key(c) for c in (None, (48, 7), (4, 0), [1, 0])] == keys
+    for src in _build.SOURCES:
+        paths = [_build.library_path(src, k) for k in keys]
         assert len({p.parent for p in paths}) == len(keys), src
-        assert _build.library_path(src, (48, 7), 1) == paths[1]   # a repeat: the same key
+        assert _build.library_path(src, (48, 7)) == paths[1]   # a repeat: the same key
         assert _build.library_path(src) == paths[0]
     assert _build.define_flags(None) == ()
-    assert _build.define_flags((48, 7, 0)) == ("-DTPT_NUM_SPHERES=48", "-DTPT_NUM_CUBOIDS=7",
-                                                "-DTPT_UNROLL=0")
-    with pytest.raises(ValueError, match="holds"):
-        _build.library_path("probes.cu", (48, 7))
-    for counts in ((257, 0), (0, 65), (-1, 0)):
-        with pytest.raises(ValueError, match="counts out of range"):
-            _build.build_key(counts)
+    assert _build.define_flags((48, 7)) == ("-DTPT_NUM_SPHERES=48", "-DTPT_NUM_CUBOIDS=7")
+    with pytest.raises(ValueError, match="csrc holds"):
+        _build.library_path("render.cu")
 
 
 RECORDING_NVCC = """#!{python}
@@ -65,39 +58,96 @@ print("ptxas info    : Used 40 registers")
 """
 
 
-def test_stub_nvcc_gets_the_defines_and_only_the_specialised_sources(tmp_path, monkeypatch):
-    """One nvcc run per library of every set, all in one build_all; a
-    specialised set compiles trace.cu and trace_grad.cu with its three -D
-    flags, the dynamic set every source with none; each log keeps the
-    build's seconds; a second call builds nothing."""
+class StubLibrary:
+    """ctypes.CDLL's stand-in for the stub's empty libraries: any entry
+    point is an object whose signature can be set."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, name):
+        return types.SimpleNamespace()
+
+
+@pytest.fixture
+def stub_nvcc(tmp_path, monkeypatch):
+    """The recording stub as nvcc, a fresh build directory, the stub's
+    libraries loaded as StubLibrary, no library loaded before; yields the
+    recorded runs' reader."""
     record = tmp_path / "calls.jsonl"
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(RECORDING_NVCC.format(python=sys.executable, record=str(record)))
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    keys = [None, (48, 7, 1), (48, 7, 0), (4, 0, 1)]
-    built = _build.build_all(keys)
-    calls = [json.loads(line) for line in record.read_text().splitlines()]
-    by_set = {}
+    monkeypatch.setattr(_build.ctypes, "CDLL", StubLibrary)
+    _build._load.cache_clear()
+    G.libraries.cache_clear()
+    G.diff_libraries.cache_clear()
+    yield lambda: ([json.loads(line) for line in record.read_text().splitlines()]
+                   if record.exists() else [])
+    _build._load.cache_clear()
+    G.libraries.cache_clear()
+    G.diff_libraries.cache_clear()
+
+
+# what each wrapper loads, through the call it makes: {case: (the call,
+# [(source, its -D flags)] of the libraries it must build)}; trace_diff
+# builds its forward's trace.cu with the backward pair, as it launches all three
+STATIC = ("-DTPT_NUM_SPHERES=48", "-DTPT_NUM_CUBOIDS=7")
+WRAPPER_LIBRARIES = {
+    "trace.cu dynamic": (lambda: [K.forward_library((48, 7), True, 1)], [("trace.cu", ())]),
+    "trace.cu (48, 7)": (lambda: [K.forward_library((48, 7), True, K.BLOCK_FRAMES)],
+                         [("trace.cu", STATIC)]),
+    "backward pair": (lambda: list(G.libraries()),
+                      [("trace_grad.cu", ()), ("trace_grad_adjoint.cu", ())]),
+    "trace_diff": (lambda: list(G.diff_libraries((48, 7))),
+                   [("trace.cu", ()), ("trace_grad.cu", ()), ("trace_grad_adjoint.cu", ())]),
+    "probes.cu": (lambda: [_build.library("probes.cu")], [("probes.cu", ())]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WRAPPER_LIBRARIES))
+def test_stub_nvcc_builds_only_the_libraries_a_wrapper_loads(stub_nvcc, case):
+    """A wrapper's first load runs nvcc once per library it launches, with
+    the build's flags and exactly its -D flags, and no more; each library
+    it returns holds its source's entry points and keeps its log with the
+    build's seconds beside it; a second load builds nothing."""
+    load, want = WRAPPER_LIBRARIES[case]
+    libs = load()
+    calls = stub_nvcc()
+    assert sorted((argv[-1].rsplit("/", 1)[-1], tuple(a for a in argv if a.startswith("-D")))
+                  for argv in calls) == sorted(want)
     for argv in calls:
-        defines = tuple(a for a in argv if a.startswith("-D"))
-        by_set.setdefault(defines, []).append(argv[-1].rsplit("/", 1)[-1])
         assert argv[:len(_build.NVCC_FLAGS)] == list(_build.NVCC_FLAGS)
-    assert sorted(by_set.pop(())) == ["probes.cu", "trace.cu", "trace_grad.cu",
-                                      "trace_grad_adjoint.cu"]
-    for key in keys[1:]:
-        assert sorted(by_set.pop(_build.define_flags(key))) == ["trace.cu", "trace_grad.cu"]
-    assert not by_set
-    assert set(built) == set(keys)
-    for key, (paths, log) in built.items():
-        assert set(paths) == set(_build._sources(key))
-        assert log.count("Used 40 registers") == len(paths)
-        for path in paths.values():
-            assert path.exists() and _build.build_seconds(path) >= 0.0
-    assert _build.build_all(keys) == built
-    assert _build.ensure_built((48, 7), 0) == built[(48, 7, 0)]
-    assert len(record.read_text().splitlines()) == len(calls)
+    assert all((lib.source, _build.define_flags(lib.key)) in want for lib in libs)
+    for lib in libs:
+        names = {n for n, (src, _) in _build.ENTRY_POINTS.items() if src == lib.source}
+        assert names and all(hasattr(lib, n) for n in names)
+        assert not any(hasattr(lib, n) for n in set(_build.ENTRY_POINTS) - names)
+        assert lib.log.count("Used 40 registers") == 1 and _build.build_seconds(lib.path) >= 0
+    _build._load.cache_clear()
+    G.libraries.cache_clear()
+    G.diff_libraries.cache_clear()
+    assert [(lib.source, lib.key, lib.path, lib.log) for lib in load()] == \
+        [(lib.source, lib.key, lib.path, lib.log) for lib in libs]
+    assert stub_nvcc() == calls
+
+
+# every way to a library, each handed the counts
+WAYS = {"build_key": _build.build_key,
+        "library_path": lambda c: _build.library_path("trace.cu", c),
+        "build_all": lambda c: _build.build_all([("trace.cu", None), ("trace.cu", c)]),
+        "library": lambda c: _build.library("trace.cu", c),
+        "forward_library": lambda c: K.forward_library(c, True, K.BLOCK_FRAMES)}
+
+
+@pytest.mark.parametrize("way", sorted(WAYS))
+def test_counts_out_of_range_raise_before_any_nvcc(stub_nvcc, way):
+    for counts in ((257, 0), (0, 65), (-1, 0)):
+        with pytest.raises(ValueError, match="counts out of range"):
+            WAYS[way](counts)
+    assert stub_nvcc() == []
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -107,7 +157,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="-DTPT_NUM_SPHERES=4 .*failed"):
-        _build.ensure_built((4, 0))
+        _build.build_all([("trace.cu", (4, 0))])
     assert not list((tmp_path / "build").rglob("*.so"))
 
 
@@ -118,7 +168,7 @@ PLAIN_CASES = {"cornell": ("cornell_scene", CORNELL_CAM, 24, 16, 2, True, "corne
 
 
 @pytest.mark.parametrize("case", sorted(PLAIN_CASES))
-def test_plain_path_gives_the_same_bits_for_any_counts_and_unroll(case):
+def test_plain_path_gives_the_same_bits_for_any_counts(case):
     """On the CPU ``counts`` bounds the plain scan and no build is loaded:
     the wrappers' results are the same bits with the scene's counts and
     without, in the select and the environment mode, and they hold to tpt's
@@ -151,19 +201,6 @@ def test_plain_path_gives_the_same_bits_for_any_counts_and_unroll(case):
     assert_parity(base, want, flips, diverged)
 
 
-@pytest.mark.parametrize("unroll", [2, -1, 0.5])
-def test_unroll_outside_0_1_raises(unroll):
-    """Every way to a build checks ``unroll`` before anything is built."""
-    with pytest.raises(ValueError, match="unroll"):
-        _build.build_key((4, 0), unroll)
-    with pytest.raises(ValueError, match="unroll"):
-        _build.library_path("trace.cu", (4, 0), unroll)
-    with pytest.raises(ValueError, match="unroll"):
-        _build.ensure_built((4, 0), unroll)
-    with pytest.raises(ValueError, match="unroll"):
-        _build.load_library((4, 0), unroll)
-
-
 @pytest.mark.parametrize("counts,env_mode,n_frames,want",
                          [((48, 7), True, 30, ((48, 7),)),
                           ((48, 7), True, K.BLOCK_FRAMES, ((48, 7),)),
@@ -174,14 +211,14 @@ def test_unroll_outside_0_1_raises(unroll):
 def test_only_an_environment_mode_launch_with_counts_takes_their_build(monkeypatch, counts,
                                                                        env_mode, n_frames,
                                                                        want):
-    """The card's measured choice (kernels.trace.forward_library): the build
-    for the counts, rolled (_build.UNROLL), for an environment-mode launch
-    of at least BLOCK_FRAMES frames with counts; the dynamic build for any
-    other launch."""
+    """The card's measured choice (kernels.trace.forward_library): trace.cu
+    built for the counts for an environment-mode launch of at least
+    BLOCK_FRAMES frames with counts; the dynamic build for any other
+    launch."""
     seen = []
-    monkeypatch.setattr(K, "load_library", lambda *a: seen.append(a) or a)
-    assert K.forward_library(counts, env_mode, n_frames) == want and seen == [want]
-    assert _build.build_key(*want) == (None if want[0] is None else (48, 7, 0))
+    monkeypatch.setattr(K, "library", lambda *a: seen.append(a) or a)
+    assert K.forward_library(counts, env_mode, n_frames) == ("trace.cu", *want)
+    assert seen == [("trace.cu", *want)]
 
 
 def test_kernel_counts_follows_the_device():

@@ -326,11 +326,9 @@ def card_readings() -> dict:
 @pytest.mark.cuda
 def test_sync_spans_are_the_card_syncs_and_start_on_the_profilers_clock(cuda):
     """:func:`card_readings` in a process of its own: a profiler session
-    started in this one would come before tests/test_torch_cuda.py's, and
-    with one before its specialised-build test, its
-    test_profile_block_splits_the_block read no trace-kernel time on the
-    H100 (the profiler's device records of libraries loaded after its first
-    session)."""
+    started in this one would come before tests/test_torch_cuda.py's; on
+    the H100 a profiler session that came before the loading of a kernel
+    library read no time of that library's kernels."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))

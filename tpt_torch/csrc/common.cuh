@@ -5,10 +5,9 @@
 // Static counts.  A build may fix the scene's primitive counts at compile
 // time, as tpt's accelerator path compiles its trace kernels for a scene's
 // static (n_spheres, n_cuboids) (tpt/kernels/trace.py:197-212):
-// -DTPT_NUM_SPHERES=ns -DTPT_NUM_CUBOIDS=nc -DTPT_UNROLL=1 unrolls the
-// fold's primitive loops fully over the constant trip counts, TPT_UNROLL=0
-// keeps them rolled at the constant bound (the two forms Mosaic allows,
-// tpt/kernels/trace.py:46-50).  The fold (closest_hit) and the staging
+// -DTPT_NUM_SPHERES=ns -DTPT_NUM_CUBOIDS=nc keeps the fold's primitive loops
+// rolled at the constant trip counts (tpt's default, the full unroll, lost
+// on the H100).  The fold (closest_hit) and the staging
 // (stage_geometry) take their trip counts from sphere_count / cuboid_count,
 // so every kernel that folds the scan gets the constants through them; a
 // specialised build's entry points refuse other counts (counts_match).
@@ -108,9 +107,6 @@ __device__ __forceinline__ V3 cosine_hemisphere(V3 n, float r_z, float r_angle) 
 #error "a specialised build defines both TPT_NUM_SPHERES and TPT_NUM_CUBOIDS"
 #endif
 #ifdef TPT_NUM_SPHERES
-#if !defined(TPT_UNROLL) || (TPT_UNROLL != 0 && TPT_UNROLL != 1)
-#error "a specialised build defines TPT_UNROLL as 0 or 1"
-#endif
 constexpr bool kStaticCounts = true;
 constexpr int kStaticSpheres = TPT_NUM_SPHERES;
 constexpr int kStaticCuboids = TPT_NUM_CUBOIDS;
@@ -190,17 +186,14 @@ struct Hit {
 // Closest-hit fold in the shader's scan order (compute.glsl:226-258):
 // spheres first, then cuboids; a candidate wins when ok && t2 > 0 &&
 // t1 < best (raw t1 against the incumbent's smallest positive t).  A
-// specialised build scans its constant counts, its loops unrolled fully
-// (TPT_UNROLL=1) or kept rolled (0).
+// specialised build scans its constant counts, its loops kept rolled.
 __device__ __forceinline__ Hit closest_hit(const GeomSmem& sc, int ns, int nc, V3 o, V3 d) {
   ns = sphere_count(ns);
   nc = cuboid_count(nc);
   float best_t = kFloatMax;
   int best_idx = -1;
   bool inside = false;
-#if defined(TPT_NUM_SPHERES) && TPT_UNROLL
-#pragma unroll
-#elif defined(TPT_NUM_SPHERES)
+#ifdef TPT_NUM_SPHERES
 #pragma unroll 1
 #endif
   for (int i = 0; i < ns; ++i) {
@@ -219,9 +212,7 @@ __device__ __forceinline__ Hit closest_hit(const GeomSmem& sc, int ns, int nc, V
       inside = best_t == t2;
     }
   }
-#if defined(TPT_NUM_SPHERES) && TPT_UNROLL
-#pragma unroll
-#elif defined(TPT_NUM_SPHERES)
+#ifdef TPT_NUM_SPHERES
 #pragma unroll 1
 #endif
   for (int i = 0; i < nc; ++i) {

@@ -94,13 +94,12 @@
 // traffic is small except, without kEnv, the 2 * F * spp * 3 floats per
 // pixel of miss slots.
 //
-// Static counts (common.cuh): built with -DTPT_NUM_SPHERES, -DTPT_NUM_CUBOIDS
-// and -DTPT_UNROLL, every instantiation scans the scene's constant counts,
-// the primitive loops unrolled fully or kept rolled, as tpt's accelerator
-// path builds pallas_trace and pallas_trace_progressive for a scene's
-// static counts (tpt/kernels/trace.py:197-212, :425-433); its entry points
-// then refuse other counts.  tpt_torch/kernels/_build.py keys each such
-// build by its counts and unroll beside the one dynamic build.
+// Static counts (common.cuh): built with -DTPT_NUM_SPHERES and
+// -DTPT_NUM_CUBOIDS, every instantiation scans the scene's constant counts,
+// as tpt's accelerator path builds pallas_trace and pallas_trace_progressive
+// for a scene's static counts (tpt/kernels/trace.py:197-212, :425-433); its
+// entry points then refuse other counts.  tpt_torch/kernels/_build.py keys
+// each such build by its counts beside the one dynamic build.
 //
 // Left for later: FMA contraction.
 //

@@ -36,16 +36,12 @@
 // with half_stores only at even bounces) and the decision code (grad.cuh),
 // and each item's live-bounce count.
 //
-// Static counts: like trace.cu, this source may be built for a scene's
-// constant counts (common.cuh), the fold unrolled or rolled at them; the
-// JAX backward always folds static counts (tpt/kernels/trace_grad.py:157-173,
-// whose hoisting of the scene into values is ptxas's choice here: the
-// geometry stays in shared memory, the loop bounds and offsets become
-// constants).  On the H100 that build was slower than the dynamic one at
-// both unrolls, so the paths launch the dynamic build and the specialised
-// one is only compared (tpt_torch/kernels/trace_grad.py).  The adjoint
-// kernel reads the winner from the tape, folds no scan, and is built once
-// for any scene.
+// Static counts: the JAX backward always folds static counts
+// (tpt/kernels/trace_grad.py:157-173); on the H100 this kernel built for
+// them (common.cuh) was slower than the dynamic build, so the backward
+// loads the dynamic build only (tpt_torch/kernels/trace_grad.py).  The
+// adjoint kernel reads the winner from the tape, folds no scan, and is
+// built once for any scene.
 //
 // Ablate modes (timing probes; results meaningless except with every flag
 // set): kFlagStores off writes no carries (the adjoint kernel then replays

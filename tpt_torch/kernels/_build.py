@@ -1,27 +1,23 @@
 """Build and load the CUDA kernel libraries of tpt_torch/csrc at first use.
 
-Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process into a
-shared library with a plain C interface; the processes run in parallel and
-the libraries are loaded with ctypes.  A library goes into
-``tpt_torch/_build/<hash>/``, keyed by a hash of the flags, its source and
-every ``csrc/*.cuh`` header, so an edited source or header rebuilds and an
-unchanged one loads at once.  Nothing is built when the module is imported:
-the CPU tests import every module.
+A library is one ``csrc/*.cu`` source compiled by its own ``nvcc`` process
+into a shared library with a plain C interface, loaded with ctypes.  It is
+built either dynamic (``counts=None``), its kernels reading the scene's
+counts at run time, or for ``(n_spheres, n_cuboids)`` with
+``-DTPT_NUM_SPHERES`` and ``-DTPT_NUM_CUBOIDS`` (csrc/common.cuh), as tpt's
+accelerator path compiles its trace kernels for a scene's static counts.
+A library goes into ``tpt_torch/_build/<hash>/``, keyed by a hash of the
+flags, its source and every ``csrc/*.cuh`` header, so an edited source or
+header rebuilds and an unchanged one loads at once.  Nothing is built when
+the module is imported: the CPU tests import every module.
 
-Library sets.  The dynamic set (key ``None``) holds every source, its
-kernels reading the scene's counts at run time.  A specialised set, key
-``(n_spheres, n_cuboids, unroll)`` (:func:`build_key`), holds the two
-sources whose kernels fold the closest-hit scan, ``trace.cu`` and
-``trace_grad.cu``, built with ``-DTPT_NUM_SPHERES``, ``-DTPT_NUM_CUBOIDS``
-and ``-DTPT_UNROLL`` (csrc/common.cuh), as tpt's accelerator path compiles
-its trace kernels for a scene's static counts; those flags enter the hash,
-so each key has its own libraries.  ``unroll`` defaults to ``UNROLL``, the
-form a path's launch takes (tpt_torch.kernels.trace says which launches
-take a specialised set); the other form is built only to be compared.
-:func:`build_all` builds any number of sets with one nvcc process per
-missing library, all started together.  Each library's compiler output,
-ptxas's report and the build's seconds included, is kept beside it as
-``.log``.
+:func:`library` gives one library's entry points, built at its first use;
+each wrapper loads only the libraries it launches, and
+tpt_torch.kernels.trace.forward_key decides which launches take a build
+for counts.  :func:`build_all` builds any number of libraries with
+one nvcc process per missing one, all started together.  Each library's
+compiler output, ptxas's report and the build's seconds included, is kept
+beside it as ``.log``.
 """
 
 from __future__ import annotations
@@ -50,17 +46,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 MAX_COLS = 32   # csrc/probes.cu kMaxCols
-
-# the sources whose kernels fold the scan, the only ones a specialised set holds
-SPECIALISED_SOURCES = ("trace.cu", "trace_grad.cu")
-UNROLLS = (0, 1)   # rolled at the constant bound, or fully unrolled
-# the form of the specialised sets a path launches: rolled, which beat the
-# full unroll (and the dynamic set on the 1080p block) on the H100
-# (PERF.md section 6, the static-count builds)
-UNROLL = 0
 SECONDS_LINE = "# nvcc seconds: "   # the build's wall time, the last line of a .log
 
-Key = Optional[Tuple[int, int, int]]   # None, or (n_spheres, n_cuboids, unroll)
+Key = Optional[Tuple[int, int]]   # a library's counts: None, or (n_spheres, n_cuboids)
 
 
 class ColWeights(ctypes.Structure):
@@ -116,6 +104,9 @@ ENTRY_POINTS = {
 }
 
 
+SOURCES = tuple(sorted({src for src, _ in ENTRY_POINTS.values()}))
+
+
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.access(nvcc, os.X_OK):
@@ -123,49 +114,34 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build_key(counts=None, unroll: int = UNROLL) -> Key:
-    """The key of the library set that serves ``counts`` and ``unroll``:
-    None (the dynamic set) for ``counts=None``, else ``(n_spheres,
-    n_cuboids, unroll)``.  ValueError for an ``unroll`` outside {0, 1} or
-    counts outside the scene's tables."""
-    if unroll not in UNROLLS:
-        raise ValueError(f"unroll must be 0 (rolled) or 1 (fully unrolled), got {unroll!r}")
+def build_key(counts=None) -> Key:
+    """The key of the build that serves ``counts``: None (the dynamic
+    build) for ``counts=None``, else ``(n_spheres, n_cuboids)``.
+    ValueError for counts outside the scene's tables."""
     if counts is None:
         return None
     ns, nc = (int(c) for c in counts)
     if not (0 <= ns <= MAX_SPHERES and 0 <= nc <= MAX_CUBOIDS):
         raise ValueError(f"counts out of range: {(ns, nc)}")
-    return ns, nc, int(unroll)
+    return ns, nc
 
 
 def define_flags(key: Key) -> Tuple[str, ...]:
-    """The -D flags of a set's build (none for the dynamic set)."""
-    if key is None:
-        return ()
-    ns, nc, unroll = key
-    return (f"-DTPT_NUM_SPHERES={ns}", f"-DTPT_NUM_CUBOIDS={nc}", f"-DTPT_UNROLL={unroll}")
+    """The -D flags of a build (none for the dynamic one)."""
+    return () if key is None else (f"-DTPT_NUM_SPHERES={key[0]}", f"-DTPT_NUM_CUBOIDS={key[1]}")
 
 
-def _sources(key: Key = None):
-    sources = sorted({src for src, _ in ENTRY_POINTS.values()})
-    return sources if key is None else [s for s in sources if s in SPECIALISED_SOURCES]
-
-
-def _library_path(source: str, key: Key) -> Path:
+def library_path(source: str, counts=None) -> Path:
+    """Where ``source``'s library for ``counts`` goes (ValueError for a
+    source that is not in csrc or counts out of range)."""
+    key = build_key(counts)
+    if source not in SOURCES:
+        raise ValueError(f"csrc holds {SOURCES}, not {source}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS + define_flags(key)).encode())
     for path in [SRC_DIR / source] + sorted(SRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / f"lib{Path(source).stem}.so"
-
-
-def library_path(source: str, counts=None, unroll: int = UNROLL) -> Path:
-    """Where ``source``'s library of the set for ``counts`` and ``unroll``
-    goes (ValueError for a source a specialised set does not hold)."""
-    key = build_key(counts, unroll)
-    if source not in _sources(key):
-        raise ValueError(f"the set {key} holds {_sources(key)}, not {source}")
-    return _library_path(source, key)
 
 
 def build_seconds(path: Path) -> Optional[float]:
@@ -178,34 +154,32 @@ def build_seconds(path: Path) -> Optional[float]:
     return None
 
 
-def build_all(keys: Iterable[Key]) -> Dict[Key, Tuple[Dict[str, Path], str]]:
-    """Compile every library of the sets ``keys`` (:func:`build_key`
-    values) that is not built yet, one nvcc process per library, all
-    started together.  Returns {key: ({source: path}, compiler output of
-    every library of the set, ptxas's report included)}; the output of a
-    library built before is read from the ``.log`` file kept beside it.
-    nvcc writes its output to a temporary log, which gets the build's
-    seconds as its last line; the log and then the library are renamed
-    into place, so concurrent builds (ranks, test workers) never load a
-    partial file.  A failed build raises; nothing falls back."""
-    sets = {key: {src: _library_path(src, key) for src in _sources(key)}
-            for key in dict.fromkeys(keys)}
+def build_all(libraries: Iterable[tuple]) -> Dict[Tuple[str, Key], Tuple[Path, str]]:
+    """Compile every library of ``libraries``, (source, counts) pairs, that
+    is not built yet, one nvcc process per library, all started together;
+    every pair is checked before any nvcc runs.  Returns {(source,
+    :func:`build_key` of its counts): (path, compiler output, ptxas's
+    report included)}; the output of a library built before is read from
+    the ``.log`` file kept beside it.  nvcc writes its output to a
+    temporary log, which gets the build's seconds as its last line; the log
+    and then the library are renamed into place, so concurrent builds
+    (ranks, test workers) never load a partial file.  A failed build
+    raises; nothing falls back."""
+    paths = {(src, build_key(counts)): library_path(src, counts) for src, counts in libraries}
     jobs = []
     try:
-        for key, paths in sets.items():
-            for src, path in paths.items():
-                if path.exists():
-                    continue
-                path.parent.mkdir(parents=True, exist_ok=True)
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-                os.close(fd)
-                fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=path.parent)
-                cmd = [find_nvcc(), *NVCC_FLAGS, *define_flags(key), "-o", tmp,
-                       str(SRC_DIR / src)]
-                with os.fdopen(fd, "w") as log:
-                    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-                jobs.append(dict(key=key, src=src, path=path, tmp=tmp, log=tmp_log, proc=proc,
-                                 t0=time.perf_counter(), seconds=None))
+        for (src, key), path in paths.items():
+            if path.exists():
+                continue
+            path.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+            os.close(fd)
+            fd, tmp_log = tempfile.mkstemp(suffix=".log", dir=path.parent)
+            cmd = [find_nvcc(), *NVCC_FLAGS, *define_flags(key), "-o", tmp, str(SRC_DIR / src)]
+            with os.fdopen(fd, "w") as log:
+                proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+            jobs.append(dict(key=key, src=src, path=path, tmp=tmp, log=tmp_log, proc=proc,
+                             t0=time.perf_counter(), seconds=None))
         while any(job["seconds"] is None for job in jobs):
             for job in jobs:
                 if job["seconds"] is None and job["proc"].poll() is not None:
@@ -229,37 +203,29 @@ def build_all(keys: Iterable[Key]) -> Dict[Key, Tuple[Dict[str, Path], str]]:
             for f in (job["tmp"], job["log"]):
                 if os.path.exists(f):
                     os.unlink(f)
-    return {key: (paths, "".join(f"== {src}\n{path.with_suffix('.log').read_text()}"
-                                 for src, path in paths.items()
-                                 if path.with_suffix(".log").exists()))
-            for key, paths in sets.items()}
+    return {pair: (path, path.with_suffix(".log").read_text()
+                   if path.with_suffix(".log").exists() else "")
+            for pair, path in paths.items()}
 
 
-def ensure_built(counts=None, unroll: int = UNROLL) -> Tuple[Dict[str, Path], str]:
-    """The one set for ``counts`` and ``unroll`` (:func:`build_all`):
-    ({source: path}, compiler output of every library of the set)."""
-    key = build_key(counts, unroll)
-    return build_all([key])[key]
-
-
-def load_library(counts=None, unroll: int = UNROLL) -> types.SimpleNamespace:
-    """The entry points of the set for ``counts`` and ``unroll``, built at
-    first use, with their signatures set, as attributes of one namespace:
-    every entry for the dynamic set, those of trace.cu and trace_grad.cu
-    for a specialised one.  Loaded once per key."""
-    return _load(build_key(counts, unroll))
+def library(source: str, counts=None) -> types.SimpleNamespace:
+    """The library of ``source`` for ``counts``, built at first use and
+    loaded once: its entry points with their signatures set, and
+    ``source``, ``key`` (:func:`build_key`), ``path`` and ``log`` (the
+    compiler output, ptxas's report included), as attributes of one
+    namespace."""
+    return _load(source, build_key(counts))
 
 
 @functools.lru_cache(maxsize=None)
-def _load(key: Key) -> types.SimpleNamespace:
-    paths, _ = build_all([key])[key]
-    libs = {src: ctypes.CDLL(str(path)) for src, path in paths.items()}
+def _load(source: str, key: Key) -> types.SimpleNamespace:
+    path, log = build_all([(source, key)])[source, key]
+    lib = ctypes.CDLL(str(path))
     fns = {}
     for name, (src, argtypes) in ENTRY_POINTS.items():
-        if src not in libs:
-            continue
-        fn = getattr(libs[src], name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return types.SimpleNamespace(key=key, libraries=libs, **fns)
+        if src == source:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return types.SimpleNamespace(source=source, key=key, path=path, log=log, **fns)

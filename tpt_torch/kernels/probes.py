@@ -154,8 +154,8 @@ def _workspace(dev: int, stream: int) -> torch.Tensor:
     work = _WORKSPACES.get((dev, stream))
     if work is None:
         words, weights_bytes = ctypes.c_int64(), ctypes.c_int64()
-        _build.load_library().tpt_probe_scatter_layout(ctypes.byref(words),
-                                                       ctypes.byref(weights_bytes))
+        _build.library("probes.cu").tpt_probe_scatter_layout(ctypes.byref(words),
+                                                             ctypes.byref(weights_bytes))
         if weights_bytes.value != ctypes.sizeof(_build.ColWeights):
             raise RuntimeError(f"csrc/probes.cu's ColWeights has {weights_bytes.value} bytes, "
                                f"_build.ColWeights {ctypes.sizeof(_build.ColWeights)}")
@@ -211,8 +211,8 @@ def _gather(name, idx, table, g, stream):
     if pi % 16:
         _aligned(name, idx=pi)
     out = torch.empty_like(g)
-    err = _build.load_library().tpt_probe_gather(pi, table.data_ptr(), K, 0, g.numel(),
-                                                 out.data_ptr(), stream)
+    err = _build.library("probes.cu").tpt_probe_gather(pi, table.data_ptr(), K, 0,
+                                                       g.numel(), out.data_ptr(), stream)
     _launched(name, "tpt_probe_gather", err)
     return out
 
@@ -224,9 +224,9 @@ def _scatter(name, idx, table, g, stream):
     _, first, n, rows, cols = scatter_args(name, g.numel())
     work = _workspace(g.get_device(), stream)
     d = g.new_empty((rows, cols))
-    err = _build.load_library().tpt_probe_scatter(pi, pg, first, n, _WEIGHT_ADDRESSES[name],
-                                                  rows, cols, work.data_ptr(), d.data_ptr(),
-                                                  stream)
+    err = _build.library("probes.cu").tpt_probe_scatter(pi, pg, first, n,
+                                                        _WEIGHT_ADDRESSES[name], rows, cols,
+                                                        work.data_ptr(), d.data_ptr(), stream)
     _launched(name, "tpt_probe_scatter", err)
     return d
 
@@ -236,8 +236,9 @@ def _elementwise(name, idx, table, g, stream):
     if x % 16:
         _aligned(name, g=x)
     out = torch.empty_like(g)
-    err = _build.load_library().tpt_probe_elementwise(x, x, g.numel(), int(name == "p4"),
-                                                      out.data_ptr(), stream)
+    err = _build.library("probes.cu").tpt_probe_elementwise(x, x, g.numel(),
+                                                            int(name == "p4"),
+                                                            out.data_ptr(), stream)
     _launched(name, "tpt_probe_elementwise", err)
     return out
 

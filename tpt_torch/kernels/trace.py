@@ -30,18 +30,18 @@ table mode and in the environment mode, ``ENV_BF16_LAUNCHES`` those of the
 environment mode with a bf16 table.
 
 Keyword arguments are those of the JAX wrappers.  ``counts`` bounds the
-scan in place of the scene's own counts.  The kernel comes in builds
-(tpt_torch.kernels._build): the dynamic one reads the counts at run time
-and serves any scene; one built for given counts has them as compile-time
-constants, as tpt's accelerator path compiles its kernels for a scene's
-static counts.  The two give the same bits.  On a CUDA device a launch
-takes the build the card measured faster for it (:func:`forward_library`):
-an environment-mode block with given ``counts`` (the render, viewer and
-block-profiler paths) the build for those counts, every other launch the
-dynamic build.  A build is made at its first use; one that fails raises,
-and nothing falls back to another build or to the plain version.
-``BUILD_LAUNCHES`` counts launches by build key (``None`` for the dynamic
-build, ``(n_spheres, n_cuboids, unroll)`` for one built for counts).
+scan in place of the scene's own counts.  The kernel's library
+(tpt_torch.kernels._build) is built dynamic, reading the counts at run
+time and serving any scene, or for given counts, which it has as
+compile-time constants, as tpt's accelerator path compiles its kernels
+for a scene's static counts.  The two give the same bits.  On a CUDA
+device a launch takes the build the card measured faster for it
+(:func:`forward_key`): an environment-mode block with given ``counts``
+(the render and viewer paths) the build for those counts, every other
+launch the dynamic build.  A build is made at its first use; one that
+fails raises, and nothing falls back to another build or to the plain
+version.  ``BUILD_LAUNCHES`` counts launches by build key (``None`` for
+the dynamic build, ``(n_spheres, n_cuboids)`` for one built for counts).
 Seeds come back as int64 tensors holding uint32 values
 (tpt_torch.rng).
 
@@ -77,7 +77,7 @@ from ..integrator import (ATTR_ROWS, ProgressiveTraceResult, TraceResult, build_
                           make_scene_trace_fn, trace_paths)
 from ..integrator import trace_progressive as _integrator_trace_progressive
 from ..utils import profiling
-from ._build import load_library
+from ._build import build_key, library
 
 LAUNCHES = 0
 ONEHOT_LAUNCHES = 0
@@ -241,24 +241,28 @@ def _count_lanes(path: str, ray_count: torch.Tensor, warp_iters: torch.Tensor | 
 BLOCK_FRAMES = 2
 
 
+def forward_key(counts, env_mode: bool, n_frames: int):
+    """The key (_build.build_key) of the trace.cu build a launch takes on
+    the card, by what the card measured (PERF.md section 6, the
+    static-count builds; NVIDIA H100): with given ``counts`` the
+    environment mode ran 3.0-3.7% faster through the build for them than
+    through the dynamic build at 2 to 30 frames a launch at 1080p, while
+    its one-frame launch ran 2.2% slower, as did the select gather's.  So
+    an environment-mode launch of at least BLOCK_FRAMES frames with given
+    counts takes the build for them, every other launch the dynamic one."""
+    return build_key(counts if env_mode and n_frames >= BLOCK_FRAMES else None)
+
+
 def forward_library(counts, env_mode: bool, n_frames: int):
-    """The library a launch takes on the card, by what the card measured
-    (PERF.md section 6, the static-count builds; NVIDIA H100): with given
-    ``counts`` the environment mode ran 3.0-3.7% faster through the build
-    for them (rolled, ``_build.UNROLL``) than through the dynamic build at
-    2 to 30 frames a launch at 1080p, while its one-frame launch ran 2.2%
-    slower, as did the select gather's, and the full unroll lost
-    everywhere.  So an environment-mode launch of at least BLOCK_FRAMES
-    frames with given counts takes the build for them, every other launch
-    the dynamic one."""
-    return load_library(counts if env_mode and n_frames >= BLOCK_FRAMES else None)
+    """The trace.cu library a launch takes on the card (:func:`forward_key`)."""
+    return library("trace.cu", forward_key(counts, env_mode, n_frames))
 
 
 def _launch(scene, inv_proj, inv_view, frame0, focal_length, aperture_diameter, *,
             width, height, ray_depth, spp, n_frames, n_valid, counts, n_rows, row0,
             jitter, rr, gather="select", env_table=None, lib=None,
             warp_iters=None) -> ProgressiveTraceResult:
-    """One launch of the kernel from ``lib`` (a _build.load_library set;
+    """One launch of the kernel from ``lib`` (a trace.cu _build.library;
     by default :func:`forward_library`'s).  ``warp_iters``: with
     ``env_table``, None or a contiguous i32[ceil(n_rows width / 32)] on the
     device, which gets each warp's loop iterations."""

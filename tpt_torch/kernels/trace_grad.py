@@ -35,12 +35,11 @@ entries (measure-zero events such as an axis-parallel ray on a cuboid
 winner) are zeroed, and their count is returned as a device tensor, so
 reading it is the caller's choice of when to synchronise.
 
-Both kernels come from the dynamic build (tpt_torch.kernels._build).  The
-tape kernel folds the closest-hit scan, and csrc/trace_grad.cu can be built
-for a scene's static counts as the JAX backward always is; on the H100 that
-build was slower at both unrolls (PERF.md section 6, the static-count
-builds), so no path launches it: :func:`_tape_counts` takes it as ``lib``
-for comparisons.  The adjoint kernel reads the winners from the tape.
+Both kernels come from dynamic builds (tpt_torch.kernels._build), one
+library each, built together at first use (:func:`libraries`).  The tape
+kernel built for a scene's static counts, as the JAX backward always
+folds them, was slower on the H100 (PERF.md section 6, the static-count
+builds).  The adjoint kernel reads the winners from the tape.
 
 ``GRAD_LAUNCHES`` counts backward calls on the card (one per
 :func:`trace_grad`), ``TAPE_LAUNCHES`` and ``ADJOINT_LAUNCHES`` each
@@ -52,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -62,9 +62,10 @@ from ..integrator import (ATTR_COLS, ATTR_ROWS, CameraParams, TraceResult,
                           build_attr_table, make_scene_scan_fn, make_table_trace_fn,
                           trace_paths)
 from ..utils import profiling
-from ._build import load_library
-from .trace import pixel_band, trace, warp_segments
+from . import _build
+from .trace import forward_key, forward_library, pixel_band, trace, warp_segments
 
+SOURCES = ("trace_grad.cu", "trace_grad_adjoint.cu")   # the tape kernel's, the adjoint's
 N_CAM = 20  # ip00 ip01 ip02 ip10 ip11 ip12, right, up, backward, eye, focal, aperture
 ABLATE_MODES = ("none", "nocam", "nostores", "nodtbl", "norev", "primalonly")
 
@@ -225,15 +226,34 @@ def lane_efficiency(ray_count: torch.Tensor) -> float:
 _WORKSPACES = {}   # (device index, stream) -> (workspace, grid)
 
 
-def _workspace(lib, device: torch.device, stream: int):
+@functools.lru_cache(maxsize=None)
+def libraries():
+    """The tape kernel's and the adjoint kernel's libraries (SOURCES),
+    dynamic builds, built together at first use."""
+    _build.build_all((src, None) for src in SOURCES)
+    return tuple(_build.library(src) for src in SOURCES)
+
+
+@functools.lru_cache(maxsize=None)
+def diff_libraries(counts: Tuple[int, int]):
+    """The libraries of a :func:`trace_diff` call with ``counts`` on the
+    card: the trace.cu build its one-frame forward takes
+    (kernels.trace.forward_library) and :func:`libraries`, the three built
+    together at first use."""
+    key = forward_key(counts, False, 1)
+    _build.build_all([("trace.cu", key)] + [(src, None) for src in SOURCES])
+    return (forward_library(counts, False, 1),) + libraries()
+
+
+def _workspace(device: torch.device, stream: int):
     """The adjoint kernel's workspace for one (device, stream): the
     per-block partials and two counters, zeroed once when made (the kernel
     leaves the counters 0), and the persistent grid it was sized for."""
     key = (device.index, stream)
     if key not in _WORKSPACES:
         words, per_sm, grid = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
-        err = lib.tpt_trace_grad_adjoint_layout(ctypes.byref(words), ctypes.byref(per_sm),
-                                                ctypes.byref(grid))
+        err = libraries()[1].tpt_trace_grad_adjoint_layout(
+            ctypes.byref(words), ctypes.byref(per_sm), ctypes.byref(grid))
         if err != 0 or grid.value <= 0:
             raise RuntimeError(f"tpt_trace_grad_adjoint_layout failed: CUDA error {err}")
         _WORKSPACES[key] = (torch.zeros(words.value, dtype=torch.float32, device=device),
@@ -277,11 +297,11 @@ def _empty_tape(device, words):
                  for n, dt in zip(words, (torch.float32, torch.int32, torch.int32)))
 
 
-def _launch_tape(lib, args, counts, band, tape, stream):
-    """One launch of the tape kernel of ``lib``; ``band`` holds its 11 int
-    arguments from the frame to the ablate flags."""
+def _launch_tape(args, counts, band, tape, stream):
+    """One launch of the tape kernel; ``band`` holds its 11 int arguments
+    from the frame to the ablate flags."""
     global TAPE_LAUNCHES
-    err = lib.tpt_trace_grad_tape(
+    err = libraries()[0].tpt_trace_grad_tape(
         args["scene.sphere_pos_radius"].data_ptr(), args["scene.cuboid_min"].data_ptr(),
         args["scene.cuboid_max"].data_ptr(), args["table"].data_ptr(), counts[0], counts[1],
         args["cam20"].data_ptr(), *band, *(t.data_ptr() for t in tape), stream)
@@ -311,18 +331,17 @@ def _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, *, width, heigh
     args = _device_inputs(device, scene, table, cam20, (g_rad, g_missd, g_misst), npix, spp)
     chunks = row_chunks(n_rows, width, spp, ray_depth, half_stores)
     out = torch.empty(OUT_WORDS, dtype=torch.float32, device=device)
-    lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        work, grid = _workspace(lib, device, stream)
+        work, grid = _workspace(device, stream)
         tape = _empty_tape(device, _tape_words(max(rows for _, rows in chunks) * width, spp,
                                                ray_depth, half_stores))
         for k, (r, rows) in enumerate(chunks):
             band = _band_ints(frame, width, height, rows, row0 + r, spp, ray_depth, jitter, rr,
                               half_stores, ablate)
-            _launch_tape(lib, args, counts, band, tape, stream)
+            _launch_tape(args, counts, band, tape, stream)
             first = 4 * r * width   # bytes to the chunk's first pixel
-            err = lib.tpt_trace_grad_adjoint(
+            err = libraries()[1].tpt_trace_grad_adjoint(
                 args["table"].data_ptr(), counts[0], counts[1], args["cam20"].data_ptr(), *band,
                 *(t.data_ptr() for t in tape), args["g_rad"].data_ptr() + first,
                 args["g_missd"].data_ptr() + first, args["g_misst"].data_ptr() + first, npix,
@@ -339,14 +358,12 @@ def _launch(scene, table, cam20, frame, g_rad, g_missd, g_misst, *, width, heigh
 
 def _tape_counts(scene, table, cam20, frame, *, width: int, height: int, ray_depth: int,
                 spp: int, counts: Tuple[int, int], n_rows: int | None = None, row0: int = 0,
-                jitter: str = "corner", rr: bool = True, tape: bool = False, lib=None):
+                jitter: str = "corner", rr: bool = True, tape: bool = False):
     """The tape kernel alone over one band (CUDA tensors only): each (pixel,
     sample) item's live bounces, i32[spp, n_rows, width].  Their sum over
     the samples is the forward kernel's ``ray_count`` exactly when the tape
     kernel took the forward kernel's decisions.  ``tape=True`` returns the
-    whole tape (carries, codes, counts) instead.  ``lib``: the library set
-    whose tape kernel runs (_build.load_library; the dynamic one by
-    default)."""
+    whole tape (carries, codes, counts) instead."""
     _check_args(counts, jitter, spp, ray_depth)
     n_rows = height if n_rows is None else n_rows
     device = _cuda_device(table)
@@ -354,10 +371,9 @@ def _tape_counts(scene, table, cam20, frame, *, width: int, height: int, ray_dep
     if tape_bytes(width, n_rows, spp, ray_depth) > TAPE_BYTES_MAX:
         raise ValueError(f"the band's tape passes TAPE_BYTES_MAX ({TAPE_BYTES_MAX} bytes)")
     words = _empty_tape(device, _tape_words(n_rows * width, spp, ray_depth, False))
-    lib = lib or load_library()
     with torch.cuda.device(device):
-        _launch_tape(lib, args, counts, _band_ints(frame, width, height, n_rows, row0, spp,
-                                                   ray_depth, jitter, rr, False, "none"),
+        _launch_tape(args, counts, _band_ints(frame, width, height, n_rows, row0, spp,
+                                              ray_depth, jitter, rr, False, "none"),
                      words, torch.cuda.current_stream(device).cuda_stream)
     return words if tape else words[2].view(spp, n_rows, width)
 
@@ -446,6 +462,8 @@ def trace_diff(scene, inv_proj, inv_view, frame, focal_length, aperture_diameter
     argument requires grad."""
     _check_args(counts, jitter, spp, ray_depth)
     table = build_attr_table(scene, counts)
+    if table.device.type == "cuda":
+        diff_libraries(tuple(counts))
     if cam20 is None:
         cam20 = camera_vector(inv_proj, inv_view, focal_length, aperture_diameter,
                               device=table.device)
